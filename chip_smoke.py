@@ -1,29 +1,48 @@
-"""Drive the PyTorch port's evaluation step on one CUDA card and check it.
+"""Drive the PyTorch port's evaluation and train steps on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
 Runs vhap_tpu_torch's evaluation energy (the render and energy of one
-tracking step, forward) at the bench's full width: batch 16, 512x512,
-texture 2048, n_shape=300, n_expr=100, SH lighting, antialias, residual
-texture and static offset, on the FLAME asset loader's head (a synthetic
-stand-in unless the FLAME files are present); see
-vhap_tpu_torch/tools/eval_slice.py.
+tracking step, forward) and one `rgb_sequential_tracking` train step
+(render -> energy with the stage's regularizers and the cluster
+disturbance -> backward -> leaf-lr Adam) at the bench's full width: batch
+16, 512x512, texture 2048, n_shape=300, n_expr=100, SH lighting,
+antialias, residual texture and static offset, on the FLAME asset loader's
+head (a synthetic stand-in unless the FLAME files are present); see
+vhap_tpu_torch/tools/eval_slice.py and train_slice.py.
 
 Phases (any failure ends the run with a non-zero exit):
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build the CUDA kernels from vhap_tpu_torch/csrc (nvcc), printing the
      build seconds and ptxas' register and spill lines;
-  3. the main path: launch counts set to 0, one evaluation step through
-     the kernels, counts read back; each kernel must have launched exactly
-     its launches per step, and the outputs must be finite and plausible;
-  4. each kernel against its plain PyTorch version on the main path's own
-     inputs (K1 visibility: tri_id identical; K2 fused interp: 1e-5 *
-     max(1, |ref|) on foreground pixels; K3 texel fetch: 1e-5 absolute),
-     with CUDA event times (median of 20 launches after warm-up, L2 flushed
-     before each) and the bound from this run's bytes and operations;
-  5. the whole step through the plain versions: E_total and the photometric
-     term agree to 1e-4 relative and the landmark term exactly; then the
-     step's time, frames/s and peak memory;
+  3. the eval path: launch counts set to 0, one evaluation step through
+     the kernels, counts read back; K1, K2f and K3 must each have launched
+     once, and the outputs must be finite and plausible;
+  4. K1, K2f and K3 against their plain PyTorch versions on the eval
+     step's own inputs (K1 visibility: tri_id identical; K2f fused interp:
+     1e-5 * max(1, |ref|) on foreground pixels; K3 texel fetch: 1e-5
+     absolute), with CUDA event times (median of 20 launches after
+     warm-up, L2 flushed before each) and the bound from this run's bytes
+     and operations;
+  5. the whole eval step through the plain versions: E_total and the
+     photometric term agree to 1e-4 relative and the landmark term
+     exactly; then the step's time, frames/s and peak memory;
+  6. the train path: launch counts set to 0, one train step through the
+     kernels with the disturbance on, counts read back; K1, K2f, K3, K2b
+     and K4 must each have launched once; E and every gradient finite,
+     every optimizable leaf changed, every frozen leaf bit-identical, the
+     stage's regularizer terms in the log;
+  7. K2b (fused interp backward) and K4 (texel scatter) against their
+     plain versions on the train step's own face table, tri_id and taps,
+     with a seeded random cotangent masked to the foreground (K2b: 1e-4 *
+     max|ref| per table row; K4: dflat 1e-5 * max|ref|, d_wgt 1e-5
+     absolute), timed and bounded as in 4;
+  8. the train step through the plain versions, disturbance off, against
+     the kernels' with the disturbance off: E_total and each log term to
+     1e-4 relative, each optimizable leaf's gradient to 1e-3 * max|g|;
+     then the train step's time (disturbance on), tracked frames/s =
+     16 / (50 * step) (bench.py:186), peak memory and the plain step's time;
 then one JSON line of the kernels, nvidia-smi's line, and the result line
 {"ok": true, "device": {...}} last.
 """
@@ -50,6 +69,12 @@ K1_FLOPS_PER_CANDIDATE = 23   # pixel center, 3 edge planes, z plane, signs
 K2_FLOPS_PER_FG_PIXEL = 118   # csrc/interp.cu, one foreground pixel
 K3_FLOPS_PER_TAP = 6          # 3 channels x (mul + add)
 K1_ROW_FIELDS_READ = 17       # setup row fields visibility.cu reads (A0X..VALID)
+# csrc/interp_bwd.cu, one foreground pixel: 85 to recompute the forward's
+# intermediates, ~197 for the adjoint, 38 row adds (36 + nf, nf = 2)
+K2B_FLOPS_PER_FG_PIXEL = 320
+K4_FLOPS_PER_LIVE_PIXEL_TAP = 5   # d_wgt: 3 mul + 2 add, every tap of a live pixel
+K4_FLOPS_PER_LIVE_TAP = 6         # dflat: 3 channels x (mul + atomic add)
+TRAIN_STEPS_PER_BATCH = 50        # bench.py STEPS_PER_BATCH: frames/s = B / (50 step)
 
 
 def log(msg: str) -> None:
@@ -213,6 +238,251 @@ def check_k3(albedo_map, chans, tri_id):
         note=f"abs err {err:.3g}, {n_taps} live taps on {n_texels} texels")
 
 
+def step_inputs(ts, params):
+    """The train step's own kernel inputs, rebuilt as render_rgba builds
+    them: the packed face table (with the two flag rows and the
+    boundary-detached AA planes), tri_id, and the texture taps."""
+    from vhap_tpu_torch.ops import camera as cam
+    from vhap_tpu_torch.ops.interp import fused_interp
+    from vhap_tpu_torch.ops.render import (RenderSettings, face_tables,
+                                           rasterize_mesh)
+    from vhap_tpu_torch.ops.texture import build_mip_pyramid, trilinear_taps
+    from vhap_tpu_torch.tracker import params as P
+    from vhap_tpu_torch.tracker.energy import fill_cam_params, render_verts_uv
+    s = ts.eval
+    head, batch, (H, W) = s.head, s.batch, s.image_size
+    stage_cfg = s.cfg.pipeline[ts.stage]
+    with torch.no_grad():
+        tsi = batch["timestep_index"]
+        sl = P.slice_batch(params, tsi)
+        B = tsi.shape[0]
+        verts = head(shape=params["shape"][None].expand(B, -1), expr=sl["expr"],
+                     rotation=sl["rotation"], neck=sl["neck_pose"],
+                     jaw=sl["jaw_pose"], eyes=sl["eyes_pose"],
+                     translation=sl["translation"], return_landmarks=False,
+                     static_offset=params.get("static_offset"))
+        K, RT = fill_cam_params(batch, params, False, (H, W))
+        rast = rasterize_mesh(verts, head.faces, RT, K, (H, W), RenderSettings())
+        packed, nf = face_tables(
+            rast, head.faces, render_verts_uv(head, "cuda"), head.textures_idx,
+            RenderSettings(),
+            head.masks.face_mask_padded(stage_cfg.align_texture_except),
+            head.masks.vertex_mask(stage_cfg.align_boundary_except),
+            head.masks.fid2cid)
+        tri_id = rast["tri_id"]
+        chans, _ = fused_interp(packed, tri_id, nf)
+        albedo = s.get_albedo(params).permute(0, 2, 3, 1)
+        flat, offsets, sizes = build_mip_pyramid(albedo)
+        idx, wgt = trilinear_taps(albedo.shape[1:3], offsets, sizes,
+                                  chans[:, 1:3].permute(0, 2, 3, 1),
+                                  chans[:, 3:7].permute(0, 2, 3, 1), tri_id > 0)
+    return packed, nf, tri_id, flat[0].contiguous(), idx.contiguous(), wgt.contiguous()
+
+
+def check_k2b(packed, nf, tri_id):
+    """K2b against fused_interp_bwd_plain: 1e-4 * max|ref| per table row."""
+    from vhap_tpu_torch.ops.interp import (N_FIXED_OUT, fused_interp_bwd,
+                                           fused_interp_bwd_plain)
+    B, C, F = packed.shape
+    H, W = tri_id.shape[1:]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    fg = (tri_id > 0)[:, None]
+    g = torch.randn((B, N_FIXED_OUT + nf, H, W), generator=gen,
+                    device="cuda") * fg
+    d_k = fused_interp_bwd(packed, tri_id, g, nf)
+    d_p = fused_interp_bwd_plain(packed, tri_id, g, nf)
+    row_err = (d_k - d_p).abs().amax(dim=(0, 2))               # (C,)
+    row_ref = d_p.abs().amax(dim=(0, 2)).clamp(min=1e-30)
+    rel = float((row_err / row_ref).max())
+    if not rel <= 1e-4:
+        worst = int((row_err / row_ref).argmax())
+        raise RuntimeError(f"K2b: row {worst} error {rel} over 1e-4 * max|ref|")
+    err = float(row_err.max())
+    n_fg = int(fg.sum())
+    n_faces = int(torch.unique(tri_id[tri_id > 0]).numel())
+    return dict(
+        name="K2b fused_interp_bwd", source="vhap_tpu_torch/csrc/interp_bwd.cu",
+        replaces="vhap_tpu/ops/interp_pallas.py:421", max_abs_err=err,
+        max_rel_err=rel,
+        kernel=lambda: fused_interp_bwd(packed, tri_id, g, nf),
+        plain=lambda: fused_interp_bwd_plain(packed, tri_id, g, nf),
+        library=None,
+        # tri_id of every pixel, the 19 + nf cotangent channels of each
+        # foreground pixel, each visible face's rows read once, the whole
+        # gradient table written once
+        n_bytes=tri_id.numel() * 4 + n_fg * (N_FIXED_OUT - 1 + nf) * 4
+                + n_faces * C * 4 + B * F * C * 4,
+        n_flops=n_fg * K2B_FLOPS_PER_FG_PIXEL,
+        note=f"abs err {err:.3g}, worst row rel err {rel:.3g} on {n_fg} "
+             f"foreground pixels, {n_faces} faces")
+
+
+def check_k4(flat1, idx, wgt, tri_id):
+    """K4 against scatter_taps_plain (dflat, 1e-5 * max|ref|) and
+    tap_weight_grad_plain (d_wgt, 1e-5 absolute)."""
+    from vhap_tpu_torch.ops.texture_fetch import (scatter_taps_plain,
+                                                  tap_weight_grad_plain,
+                                                  weighted_fetch_bwd)
+    B, K, P = idx.shape
+    N = flat1.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    fg = (tri_id > 0).reshape(B, P, 1)
+    g = torch.randn((B, P, 3), generator=gen, device="cuda") * fg
+    dflat_k, dw_k = weighted_fetch_bwd(flat1, idx, wgt, g)
+    dflat_p = scatter_taps_plain(idx, wgt, g, N)
+    dw_p = tap_weight_grad_plain(flat1, idx, g)
+    err = float((dflat_k - dflat_p).abs().max())
+    scale = float(dflat_p.abs().max())
+    err_w = float((dw_k - dw_p).abs().max())
+    if not (err <= 1e-5 * scale and err_w <= 1e-5):
+        raise RuntimeError(f"K4: dflat error {err} over 1e-5 * {scale}, or "
+                           f"d_wgt error {err_w} over 1e-5")
+    live_px = fg.reshape(B, 1, P)
+    live = (wgt != 0) & live_px
+    n_live_px = int(live_px.sum())
+    n_taps = int(live.sum())
+    n_texels = int(torch.unique(idx[live_px.expand(B, K, P)]).numel())
+    idx_flat = idx.reshape(-1).long()
+    vals = (wgt[..., None] * g[:, None]).reshape(-1, 3)   # formed untimed
+    return dict(
+        name="K4 texel_scatter", source="vhap_tpu_torch/csrc/texture_scatter.cu",
+        replaces="vhap_tpu/ops/texture_grad_pallas.py:338", max_abs_err=err,
+        max_abs_err_d_wgt=err_w,
+        kernel=lambda: weighted_fetch_bwd(flat1, idx, wgt, g),
+        plain=lambda: (scatter_taps_plain(idx, wgt, g, N),
+                       tap_weight_grad_plain(flat1, idx, g)),
+        library=lambda: torch.zeros((N, 3), device="cuda").index_add_(
+            0, idx_flat, vals),
+        # g of every pixel; weight and index of every tap of a pixel with a
+        # cotangent; each texel those taps touch read once; d_wgt and the
+        # whole dflat written once
+        n_bytes=B * P * 12 + n_live_px * K * 8 + n_texels * 12
+                + B * K * P * 4 + N * 12,
+        n_flops=n_live_px * K * K4_FLOPS_PER_LIVE_PIXEL_TAP
+                + n_taps * K4_FLOPS_PER_LIVE_TAP,
+        note=f"dflat abs err {err:.3g} (max|ref| {scale:.3g}), d_wgt abs err "
+             f"{err_w:.3g}; {n_taps} live taps of {n_live_px} pixels on "
+             f"{n_texels} texels ({n_taps / max(n_texels, 1):.1f} taps per "
+             f"texel); library: index_add_ of all {B * K * P} taps, vals = "
+             f"wgt * g formed before the timed region")
+
+
+def kernel_row(r, launches):
+    """Time one check's kernel, plain version and library call; the JSON
+    row of the kernels line."""
+    ms, plain_ms = cuda_ms(r["kernel"]), cuda_ms(r["plain"])
+    lib_ms = cuda_ms(r["library"]) if r.get("library") else None
+    b_ms, b_by = bound(r["n_bytes"], r["n_flops"])
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log(f"[kernel] {r['name']}: {r['note']}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {lib}, bound {b_ms:.4f} ms by {b_by} "
+        f"({r['n_bytes'] / 1e6:.1f} MB, {r['n_flops'] / 1e9:.3f} GFLOP)")
+    row = {
+        "name": r["name"], "route": "cuda", "source": r["source"],
+        "replaces": r["replaces"], "launches": launches,
+        "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    for extra in ("max_rel_err", "max_abs_err_d_wgt"):
+        if extra in r:
+            row[extra] = r[extra]
+    return row
+
+
+def check_train_step(ts, kernels, per_step):
+    """Phase 6: one train step through the kernels, disturbance on."""
+    s = ts.eval
+    init, step = ts.make_step(True, True)
+    params = s.params
+    opt_state = init(params)
+    gen = ts.generator(0)
+    for k in kernels.values():
+        k.launches = 0
+    new, state, E, logs = step(params, opt_state, s.batch, gen)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"[train] launches in one train step: {launches}")
+    for name, n in launches.items():
+        if n != per_step:
+            raise RuntimeError(f"{name} launched {n} times in the train step, "
+                               f"expected {per_step}")
+    # Adam's first moment after one step is 0.1 * g: finite iff g is
+    bad = [k for k, m in state["mu"].items() if not torch.isfinite(m).all()]
+    if bad or not torch.isfinite(E):
+        raise RuntimeError(f"train step: E {float(E)}, non-finite gradients {bad}")
+    unchanged = [k for k in ts.opt_leaves if torch.equal(new[k], params[k])]
+    moved = [k for k in params if k not in ts.opt_leaves
+             and not (new[k] is params[k] and torch.equal(new[k], params[k]))]
+    if unchanged or moved:
+        raise RuntimeError(f"optimizable leaves unchanged {unchanged}, frozen "
+                           f"leaves changed {moved}")
+    want = {"lmk", "photo", "smooth_pose", "reg_joint", "smooth_joint",
+            "reg_expr", "smooth_expr", "reg_tex_tv", "reg_offset_lap",
+            "reg_offset", "total", "rast_overflow"}
+    if not want <= set(logs):
+        raise RuntimeError(f"train log lacks {sorted(want - set(logs))}")
+    log(f"[train] E_total {float(E):.6f}; " + ", ".join(
+        f"{k} {float(v):.6g}" for k, v in logs.items()))
+    log(f"[train] optimizable {sorted(ts.opt_leaves)} changed, frozen "
+        f"{sorted(set(params) - ts.opt_leaves)} bit-identical, gradients finite")
+    return launches
+
+
+def check_train_plain(ts):
+    """Phase 8a: kernels vs plain versions, disturbance off."""
+    from vhap_tpu_torch.tracker.optim import loss_and_grads
+    s = ts.eval
+    (Ek, lk, gk), (Ep, lp, gp) = (
+        loss_and_grads(ts.make_energy(use_kernels, False), s.params,
+                       ts.opt_leaves, s.batch, ts.generator(1))
+        for use_kernels in (True, False))
+    if set(lk) != set(lp):
+        raise RuntimeError(f"train log keys differ: {sorted(lk)} vs {sorted(lp)}")
+    # a term equal on both paths (the regularizers that are 0 here) counts 0
+    worst_term = max(abs(float(lk[k] - lp[k])) / abs(float(lp[k]))
+                     if float(lk[k] - lp[k]) else 0.0 for k in lp)
+    if not worst_term <= 1e-4:
+        raise RuntimeError(f"train energy terms disagree: worst rel {worst_term}")
+    worst_grad = {}
+    for k in gp:
+        scale = float(gp[k].abs().max())
+        err = float((gk[k] - gp[k]).abs().max())
+        worst_grad[k] = err / scale if scale > 0 else err
+        if not err <= 1e-3 * scale:
+            raise RuntimeError(f"gradient of {k}: error {err} over 1e-3 * {scale}")
+    log(f"[train] kernels vs plain (disturbance off): E_total {float(Ek):.6f} "
+        f"vs {float(Ep):.6f}, worst term rel {worst_term:.3g}; gradient err / "
+        f"max|g|: " + ", ".join(f"{k} {v:.3g}" for k, v in worst_grad.items()))
+
+
+def train_timing(ts, t0):
+    """Phase 8b: the train step's time, frames/s and peak memory."""
+    s = ts.eval
+    B = s.batch["rgb"].shape[0]
+
+    def step_ms(use_kernels, warmup, reps):
+        init, step = ts.make_step(use_kernels, True)
+        params, state = s.params, init(s.params)
+        gen = ts.generator(4)
+        times = []
+        for _ in range(warmup + reps):
+            t = time.perf_counter()
+            params, state, E, _ = step(params, state, s.batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        if not torch.isfinite(E):
+            raise RuntimeError(f"train step E {float(E)} after {warmup + reps} steps")
+        return statistics.median(times[warmup:]) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    ms_k = step_ms(True, 2, 10)
+    peak = torch.cuda.max_memory_allocated()
+    ms_p = step_ms(False, 1, 3)
+    log(f"[step] train step {ms_k:.3f} ms (median of 10), "
+        f"{B / (TRAIN_STEPS_PER_BATCH * ms_k * 1e-3):.4f} tracked frames/s, "
+        f"peak memory {peak / 2**30:.3f} GiB; through the plain versions "
+        f"{ms_p:.3f} ms (median of 3); run {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     smi_line = card()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in full
@@ -221,22 +491,26 @@ def main() -> int:
     build_kernels()
 
     from vhap_tpu_torch.ops import camera as cam
-    from vhap_tpu_torch.ops.interp import FUSED_INTERP
+    from vhap_tpu_torch.ops.interp import FUSED_INTERP, FUSED_INTERP_BWD
     from vhap_tpu_torch.ops.rasterize import VISIBILITY
-    from vhap_tpu_torch.ops.texture_fetch import WEIGHTED_FETCH
-    from vhap_tpu_torch.tools.eval_slice import build_eval_slice
+    from vhap_tpu_torch.ops.texture_fetch import WEIGHTED_FETCH, WEIGHTED_FETCH_BWD
+    from vhap_tpu_torch.tools.train_slice import build_train_slice
     from vhap_tpu_torch.tracker.energy import fill_cam_params
 
-    s = build_eval_slice(device="cuda")
+    ts = build_train_slice(device="cuda")
+    s = ts.eval
     B = s.batch["rgb"].shape[0]
     H, W = s.image_size
     log(f"[slice] B={B} {H}x{W} tex {s.cfg.model.tex_resolution} "
         f"n_shape={s.cfg.model.n_shape} n_expr={s.cfg.model.n_expr}; head "
         f"V={s.head.num_verts} F={s.head.num_faces} (synthetic: "
-        f"{list(s.head.assets.synthetic_parts)}); set up in "
+        f"{list(s.head.assets.synthetic_parts)}); train stage {ts.stage}, "
+        f"disturbance rates {s.cfg.render.disturb_rate_fg} / "
+        f"{s.cfg.render.disturb_rate_bg}, pool stride "
+        f"{s.cfg.render.disturb_pool_stride}; set up in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # ---- 3. the main path: one eval step through the kernels ----
+    # ---- 3. the eval path: one eval step through the kernels ----
     kernels = {"K1 visibility": VISIBILITY, "K2f fused_interp": FUSED_INTERP,
                "K3 texel_fetch": WEIGHTED_FETCH}
     per_step = {name: 1 for name in kernels}
@@ -269,21 +543,6 @@ def main() -> int:
     tri_id, r1 = check_k1(s, verts_clip)
     chans, r2 = check_k2(s, verts_clip, verts, tri_id)
     r3 = check_k3(aux["albedo_map"], chans, tri_id)
-    rows_out = []
-    for r in (r1, r2, r3):
-        ms, plain_ms = cuda_ms(r["kernel"]), cuda_ms(r["plain"])
-        b_ms, b_by = bound(r["n_bytes"], r["n_flops"])
-        log(f"[kernel] {r['name']}: {r['note']}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-            f"({r['n_bytes'] / 1e6:.1f} MB, {r['n_flops'] / 1e9:.3f} GFLOP)")
-        row = {
-            "name": r["name"], "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": launches[r["name"]],
-            "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        if "max_rel_err" in r:
-            row["max_rel_err"] = r["max_rel_err"]
-        rows_out.append(row)
 
     # ---- 5. the whole step through the plain versions; step timing ----
     eval_plain = s.make_energy(False)
@@ -314,6 +573,22 @@ def main() -> int:
     log(f"[step] eval step {ms_k:.3f} ms (median of 10), {B / ms_k * 1e3:.2f} "
         f"frames/s, peak memory {peak / 2**30:.3f} GiB; through the plain "
         f"versions {ms_p:.3f} ms (median of 3); run {time.perf_counter() - t0:.1f} s")
+
+    # ---- 6. the train path: one train step through the kernels ----
+    train_kernels = dict(kernels, **{"K2b fused_interp_bwd": FUSED_INTERP_BWD,
+                                     "K4 texel_scatter": WEIGHTED_FETCH_BWD})
+    train_launches = check_train_step(ts, train_kernels, 1)
+
+    # ---- 7. K2b and K4 against their plain versions; 4 and 7 timed ----
+    packed, nf, tri_t, flat1, idx, wgt = step_inputs(ts, s.params)
+    r4 = check_k2b(packed, nf, tri_t)
+    r5 = check_k4(flat1, idx, wgt, tri_t)
+    rows_out = [kernel_row(r, train_launches[r["name"]])
+                for r in (r1, r2, r3, r4, r5)]
+
+    # ---- 8. the train step through the plain versions; step timing ----
+    check_train_plain(ts)
+    train_timing(ts, t0)
 
     print(json.dumps({"kernels": rows_out}), flush=True)
     print(smi_line, flush=True)

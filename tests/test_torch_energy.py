@@ -108,11 +108,18 @@ def test_eval_slice_builds_rendered_targets():
 
 
 def test_training_stage_raises(setup):
-    a, _, th, _, _ = setup
+    """A training stage builds (slice 2); its energy takes a generator for
+    the cluster disturbance and raises without one."""
+    a, _, th, p, batch = setup
     cfg = _config(TConfig, "target")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        t_energy(th, cfg, t_albedo(cfg, TTex(a.tex_painted, R, device="cpu"), None),
-                 (H, W), T, "rgb_sequential_tracking", device="cpu")
+    en = t_energy(th, cfg, t_albedo(cfg, TTex(a.tex_painted, R, device="cpu"), None),
+                  (H, W), T, "rgb_sequential_tracking", device="cpu")
+    params = params_from_numpy(p, device="cpu")
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    E, (log, _) = en(params, tb, torch.Generator().manual_seed(0))
+    assert torch.isfinite(E) and {"photo", "smooth_pose", "reg_tex_tv"} <= set(log)
+    with pytest.raises(ValueError, match="Generator"):
+        en(params, tb)
 
 
 def test_energy_device_must_match_head(setup):
@@ -130,7 +137,7 @@ def test_energy_device_must_match_head(setup):
     ("texture_grad_mode", "bilinear"), ("disturb_impl", "pairswap"),
     ("backend", "xla"), ("layout", "image"), ("color_dtype", "f32"),
     ("texture_grad_impl", "xla"), ("texture_grad_impl", "xla_fetch"),
-    ("disturb_impl", "sample")])
+    ("texture_grad_impl", "pallas")])
 def test_tpu_only_render_knobs_rejected(field, value):
     with pytest.raises(ValueError, match="TPU-only"):
         RenderConfig(**{field: value})
@@ -148,3 +155,5 @@ def test_render_defaults_and_portable_values_accepted():
                  color_dtype="auto", texture_grad_mode="trilinear",
                  texture_grad_impl="auto", max_faces_per_tile=0,
                  plane_max_list=0, disturb_impl="auto")
+    # the sampling disturbance is ported: "auto" resolves to it
+    RenderConfig(disturb_impl="sample").check_portable()

@@ -90,13 +90,82 @@ def test_weighted_fetch_kernel_matches_plain(dev):
 
 
 def test_backward_kernels_raise_until_ported(dev):
-    from vhap_tpu_torch.ops.texture_fetch import weighted_fetch
+    """The fetch's backward runs (K4 since slice 2): texel and weight
+    gradients equal their plain versions', through autograd."""
+    from vhap_tpu_torch.ops.texture_fetch import (WEIGHTED_FETCH_BWD,
+                                                  weighted_fetch,
+                                                  weighted_fetch_plain)
     flat = torch.rand(64, 3, device=dev, requires_grad=True)
-    idx = torch.zeros(1, 8, 32, dtype=torch.int32, device=dev)
-    wgt = torch.rand(1, 8, 32, device=dev)
-    out = weighted_fetch(flat, idx, wgt)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        out.sum().backward()
+    idx = torch.randint(0, 64, (1, 8, 32), dtype=torch.int32, device=dev)
+    wgt = torch.rand(1, 8, 32, device=dev, requires_grad=True)
+    n0 = WEIGHTED_FETCH_BWD.launches
+    gk = torch.autograd.grad(weighted_fetch(flat, idx, wgt).sum(), (flat, wgt))
+    gp = torch.autograd.grad(weighted_fetch_plain(flat, idx, wgt).sum(), (flat, wgt))
+    torch.cuda.synchronize()
+    assert WEIGHTED_FETCH_BWD.launches == n0 + 1
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def _interp_scene(dev, nf=2, seed=3):
+    from vhap_tpu_torch.ops.rasterize import PLANE_KEYS, face_attribute_planes, visibility
+    clip, faces = _scene(dev, seed=seed)
+    H, W = 64, 256
+    tri, _ = visibility(clip, faces, H, W)
+    B, F = clip.shape[0], faces.shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = face_attribute_planes(clip, faces)
+    packed = torch.cat([torch.stack([p[k] for k in PLANE_KEYS], 1),
+                        torch.randn(B, 15, F, device=dev, generator=g),
+                        faces.T[None].float().expand(B, 3, F),
+                        torch.randint(0, 4, (B, nf, F), device=dev, generator=g).float(),
+                        torch.stack([p[k] for k in PLANE_KEYS[:6]], 1)], 1).contiguous()
+    cot = torch.randn(B, 20 + nf, H, W, device=dev, generator=g) * (tri > 0)[:, None]
+    return packed, tri, cot
+
+
+@pytest.mark.parametrize("nf,seed", [(2, 3), (0, 4)])
+def test_fused_interp_bwd_kernel_matches_plain(dev, nf, seed):
+    from vhap_tpu_torch.ops.interp import (FUSED_INTERP_BWD, fused_interp,
+                                           fused_interp_bwd, fused_interp_bwd_plain)
+    packed, tri, cot = _interp_scene(dev, nf, seed)
+    n0 = FUSED_INTERP_BWD.launches
+    got = fused_interp_bwd(packed, tri, cot, nf)
+    ref = fused_interp_bwd_plain(packed, tri, cot, nf)
+    # the same kernel through autograd
+    p = packed.clone().requires_grad_(True)
+    (via_autograd,) = torch.autograd.grad(fused_interp(p, tri, nf)[0], p, cot)
+    torch.cuda.synchronize()
+    assert FUSED_INTERP_BWD.launches == n0 + 2
+    assert int((tri > 0).sum()) > 1000
+    row_ref = ref.abs().amax(dim=(0, 2))
+    assert bool((row_ref > 0).all())
+    for x in (got, via_autograd):
+        assert bool(((x - ref).abs().amax(dim=(0, 2)) <= 1e-4 * row_ref).all())
+
+
+def test_weighted_fetch_bwd_kernel_matches_plain(dev):
+    from vhap_tpu_torch.ops.texture_fetch import (WEIGHTED_FETCH_BWD,
+                                                  scatter_taps_plain,
+                                                  tap_weight_grad_plain,
+                                                  weighted_fetch_bwd)
+    g = torch.Generator(device=dev).manual_seed(5)
+    N, B, K, P = 5461, 2, 8, 4096
+    flat = torch.rand(N, 3, device=dev, generator=g)
+    # few texels: heavy atomic collisions, as on the head
+    idx = torch.randint(0, 97, (B, K, P), device=dev, generator=g, dtype=torch.int32)
+    wgt = torch.rand(B, K, P, device=dev, generator=g)
+    wgt[:, :, ::3] = 0.0
+    cot = torch.randn(B, P, 3, device=dev, generator=g)
+    cot[:, ::5] = 0.0                     # pixels without a cotangent
+    n0 = WEIGHTED_FETCH_BWD.launches
+    dflat, d_wgt = weighted_fetch_bwd(flat, idx, wgt, cot)
+    ref = scatter_taps_plain(idx, wgt, cot, N)
+    ref_w = tap_weight_grad_plain(flat, idx, cot)
+    torch.cuda.synchronize()
+    assert WEIGHTED_FETCH_BWD.launches == n0 + 1
+    assert float((dflat - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert float((d_wgt - ref_w).abs().max()) <= 1e-5
 
 
 def test_wrappers_reject_bad_inputs(dev):
@@ -138,3 +207,30 @@ def test_eval_energy_kernels_match_plain(dev):
     assert abs(float(Ek) - float(Ep)) <= 1e-4 * abs(float(Ep))
     assert float(lk["lmk"]) == float(lp["lmk"])
     assert float((ak["pred_rgb"] - ap["pred_rgb"]).abs().max()) <= 1e-4
+
+
+def test_train_step_kernels_match_plain(dev):
+    """The rgb_sequential_tracking train step at a small size, disturbance
+    off: energy terms and gradients through the kernels equal the plain
+    path's; with the disturbance on, every kernel launches once a step."""
+    from vhap_tpu_torch.ops.interp import FUSED_INTERP_BWD
+    from vhap_tpu_torch.ops.texture_fetch import WEIGHTED_FETCH_BWD
+    from vhap_tpu_torch.tools.train_slice import build_train_slice
+    from vhap_tpu_torch.tracker.optim import loss_and_grads
+    ts = build_train_slice(device=dev, batch_size=2, image_size=(64, 128),
+                           tex_res=64, n_shape=20, n_expr=10)
+    s = ts.eval
+    (Ek, lk, gk), (Ep, lp, gp) = (
+        loss_and_grads(ts.make_energy(k, False), s.params, ts.opt_leaves,
+                       s.batch, ts.generator(0)) for k in (True, False))
+    assert set(lk) == set(lp)
+    for k in lp:
+        assert abs(float(lk[k]) - float(lp[k])) <= 1e-4 * abs(float(lp[k])), k
+    for k in gp:
+        assert float((gk[k] - gp[k]).abs().max()) <= 1e-3 * float(gp[k].abs().max()), k
+    init, step = ts.make_step(True, True)
+    n0 = (FUSED_INTERP_BWD.launches, WEIGHTED_FETCH_BWD.launches)
+    _, _, E, _ = step(s.params, init(s.params), s.batch, ts.generator(1))
+    torch.cuda.synchronize()
+    assert torch.isfinite(E)
+    assert (FUSED_INTERP_BWD.launches, WEIGHTED_FETCH_BWD.launches) == (n0[0] + 1, n0[1] + 1)

@@ -1,6 +1,7 @@
 """Port parity: shading, antialias and render_rgba (image layout) against
 the JAX package, on the same tri_id."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -131,14 +132,38 @@ def test_render_rgba_matches(scene, background):
 
 
 def test_training_features_raise(scene):
+    """The training features render (slice 2), matching the JAX package
+    with the disturbance off; only the TPU's 'pairswap' disturbance and a
+    disturbance without fid2cid or generator raise."""
     sc = scene
-    _, _, trd = _rasterize_both(sc)
+    settings, jrd, trd = _rasterize_both(sc)
+    F, V = sc["faces"].shape[0], sc["verts"].shape[1]
+    rng = np.random.default_rng(4)
+    tex_mask = rng.uniform(size=F + 1) < 0.5
+    tex_mask[0] = False
+    bnd_mask = rng.uniform(size=V) < 0.3
+    fid2cid = np.concatenate([[0], rng.integers(1, 4, F)]).astype(np.int32)
     args = (trd, _t(sc["faces"]).long(), _t(sc["verts_uv"]),
-            _t(sc["faces_uv"]).long(), _t(sc["tex"]), _t(sc["lights"]),
-            trender.RenderSettings())
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        trender.render_rgba(*args, enable_disturbance=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        trender.render_rgba(*args, align_texture_face_mask=np.ones(10, bool))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        trender.render_rgba(*args, align_boundary_vert_mask=np.ones(10, bool))
+            _t(sc["faces_uv"]).long(), _t(sc["tex"]), _t(sc["lights"]))
+    off = dict(disturb_rate_fg=None, disturb_rate_bg=None)
+    tout = trender.render_rgba(
+        *args, trender.RenderSettings(**off), (1.0, 1.0, 1.0), tex_mask,
+        bnd_mask, enable_disturbance=True, fid2cid=fid2cid, num_clusters=4,
+        generator=torch.Generator().manual_seed(0))
+    jout = jrender.render_rgba(
+        jrd, jnp.asarray(sc["faces"]), jnp.asarray(sc["verts_uv"]),
+        jnp.asarray(sc["faces_uv"]), jnp.asarray(sc["tex"]),
+        jnp.asarray(sc["lights"]), jrender.RenderSettings(
+            backend="xla", color_dtype="f32", interp_impl="planes",
+            plane_impl="xla", **off), (1.0, 1.0, 1.0), tex_mask, bnd_mask,
+        enable_disturbance=True, fid2cid=jnp.asarray(fid2cid), num_clusters=4,
+        key=jax.random.PRNGKey(0))
+    for k in ("rgba", "cid"):
+        np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]),
+                                   rtol=0, atol=1e-4, err_msg=k)
+    with pytest.raises(NotImplementedError, match="pairswap"):
+        trender.render_rgba(*args, trender.RenderSettings(disturb_impl="pairswap"),
+                            enable_disturbance=True, fid2cid=fid2cid,
+                            num_clusters=4, generator=torch.Generator())
+    with pytest.raises(ValueError, match="fid2cid"):
+        trender.render_rgba(*args, trender.RenderSettings(), enable_disturbance=True)

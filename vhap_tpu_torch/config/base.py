@@ -1,4 +1,4 @@
-"""Tracking configuration read by the port's evaluation path.
+"""Tracking configuration read by the port's evaluation and training steps.
 
 Same field names and defaults as vhap_tpu/config/base.py (and through it
 the reference's vhap/config/base.py), so recipes carry over unchanged. The
@@ -7,8 +7,8 @@ the port accepts each only at its default: any other value selects a TPU
 layout or workaround the port does not carry (ROADMAP.md "Not to port"),
 and `RenderConfig.check_portable` raises on it.
 
-Stage tables, learning rates, logging and experiment settings are read by
-the training step and the tracker loop; they come with those slices.
+Logging and experiment settings are read by the tracker loop; they come
+with that slice.
 """
 
 from __future__ import annotations
@@ -70,11 +70,12 @@ class ModelConfig(Config):
     """Directory holding the FLAME asset files."""
 
 
-# TPU-only render knobs and the one value of each the port accepts: its
+# TPU-only render knobs and the values of each the port accepts: its
 # default. The port has one implementation of each stage (exact visibility
 # with no bin budget, the fused per-pixel interpolation, the image layout at
-# any H x W, a float32 color chain and exact trilinear texel fetches) and
-# reads none of these fields.
+# any H x W, a float32 color chain, exact trilinear texel fetches and the
+# sampling cluster disturbance) and reads none of these fields but
+# disturb_impl, whose "auto" resolves to "sample" as in the JAX package.
 _PORTABLE_ONLY = {
     "plane_impl": ("auto",),
     "interp_impl": ("auto",),
@@ -87,7 +88,7 @@ _PORTABLE_ONLY = {
     "color_dtype": ("auto",),
     "texture_grad_mode": ("trilinear",),
     "texture_grad_impl": ("auto",),
-    "disturb_impl": ("auto",),
+    "disturb_impl": ("auto", "sample"),
 }
 
 
@@ -128,6 +129,17 @@ class RenderConfig(Config):
                     f"render.{name}={value!r} selects a TPU-only layout or "
                     f"workaround that vhap_tpu_torch does not port; use one "
                     f"of {allowed}")
+
+
+@dataclass
+class LearningRateConfig(Config):
+    base: float = 5e-3
+    translation: float = 1e-3
+    expr: float = 5e-2
+    static_offset: float = 5e-4
+    dynamic_offset: float = 5e-4
+    camera: float = 5e-3
+    light: float = 5e-3
 
 
 @dataclass
@@ -174,12 +186,112 @@ class LossWeightConfig(Config):
 
 
 @dataclass
+class StageConfig(Config):
+    disable_jawline_landmarks: bool = False
+
+
+@dataclass
+class StageLmkInitRigidConfig(StageConfig):
+    num_steps: int = 500
+    optimizable_params: Tuple[str, ...] = ("cam", "pose")
+
+
+@dataclass
+class StageLmkInitAllConfig(StageConfig):
+    num_steps: int = 500
+    optimizable_params: Tuple[str, ...] = ("cam", "pose", "shape", "joints", "expr")
+
+
+@dataclass
+class StageLmkSequentialTrackingConfig(StageConfig):
+    num_steps: int = 50
+    optimizable_params: Tuple[str, ...] = ("pose", "joints", "expr")
+
+
+@dataclass
+class StageLmkGlobalTrackingConfig(StageConfig):
+    num_epochs: int = 30
+    optimizable_params: Tuple[str, ...] = ("cam", "pose", "shape", "joints", "expr")
+
+
+@dataclass
+class PhotometricStageConfig(StageConfig):
+    align_texture_except: Tuple[str, ...] = ()
+    align_boundary_except: Tuple[str, ...] = ("bottomline",)
+
+
+@dataclass
+class StageRgbInitTextureConfig(PhotometricStageConfig):
+    num_steps: int = 500
+    optimizable_params: Tuple[str, ...] = ("cam", "shape", "texture", "lights")
+    align_texture_except: Tuple[str, ...] = ("hair", "boundary", "neck")
+    align_boundary_except: Tuple[str, ...] = ("hair", "boundary")
+
+
+@dataclass
+class StageRgbInitAllConfig(PhotometricStageConfig):
+    num_steps: int = 500
+    optimizable_params: Tuple[str, ...] = ("cam", "pose", "shape", "joints",
+                                           "expr", "texture", "lights")
+    disable_jawline_landmarks: bool = True
+    align_texture_except: Tuple[str, ...] = ("hair", "boundary", "neck")
+    align_boundary_except: Tuple[str, ...] = ("hair", "bottomline")
+
+
+@dataclass
+class StageRgbInitOffsetConfig(PhotometricStageConfig):
+    num_steps: int = 500
+    optimizable_params: Tuple[str, ...] = ("cam", "pose", "shape", "joints",
+                                           "expr", "texture", "lights",
+                                           "static_offset")
+    disable_jawline_landmarks: bool = True
+    align_texture_except: Tuple[str, ...] = ("hair", "boundary", "neck")
+
+
+@dataclass
+class StageRgbSequentialTrackingConfig(PhotometricStageConfig):
+    num_steps: int = 50
+    optimizable_params: Tuple[str, ...] = ("pose", "joints", "expr", "texture",
+                                           "dynamic_offset")
+    disable_jawline_landmarks: bool = True
+
+
+@dataclass
+class StageRgbGlobalTrackingConfig(PhotometricStageConfig):
+    num_epochs: int = 30
+    optimizable_params: Tuple[str, ...] = ("cam", "pose", "shape", "joints",
+                                           "expr", "texture", "lights",
+                                           "static_offset", "dynamic_offset")
+    disable_jawline_landmarks: bool = True
+
+
+@dataclass
+class PipelineConfig(Config):
+    lmk_init_rigid: StageLmkInitRigidConfig = field(default_factory=StageLmkInitRigidConfig)
+    lmk_init_all: StageLmkInitAllConfig = field(default_factory=StageLmkInitAllConfig)
+    lmk_sequential_tracking: StageLmkSequentialTrackingConfig = field(
+        default_factory=StageLmkSequentialTrackingConfig)
+    lmk_global_tracking: StageLmkGlobalTrackingConfig = field(
+        default_factory=StageLmkGlobalTrackingConfig)
+    rgb_init_texture: StageRgbInitTextureConfig = field(default_factory=StageRgbInitTextureConfig)
+    rgb_init_all: StageRgbInitAllConfig = field(default_factory=StageRgbInitAllConfig)
+    rgb_init_offset: StageRgbInitOffsetConfig = field(default_factory=StageRgbInitOffsetConfig)
+    rgb_sequential_tracking: StageRgbSequentialTrackingConfig = field(
+        default_factory=StageRgbSequentialTrackingConfig)
+    rgb_global_tracking: StageRgbGlobalTrackingConfig = field(
+        default_factory=StageRgbGlobalTrackingConfig)
+
+
+@dataclass
 class BaseTrackingConfig(Config):
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
+    lr: LearningRateConfig = field(default_factory=LearningRateConfig)
     w: LossWeightConfig = field(default_factory=LossWeightConfig)
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
 
+    begin_stage: Optional[str] = None
     begin_timestep: int = 0
     batch_size: Optional[int] = 16
 
@@ -196,3 +308,21 @@ class BaseTrackingConfig(Config):
             # without offsets, boundary alignment of hair is hopeless
             # (vhap/config/base.py:341-342)
             self.model.occluded = tuple(list(self.model.occluded) + ["hair"])
+
+        for cfg_stage in self.pipeline.__dict__.values():
+            if isinstance(cfg_stage, PhotometricStageConfig):
+                cfg_stage.align_texture_except = tuple(
+                    list(cfg_stage.align_texture_except) + list(self.model.occluded))
+                cfg_stage.align_boundary_except = tuple(
+                    list(cfg_stage.align_boundary_except) + list(self.model.occluded))
+
+        if self.begin_stage is not None:
+            if self.begin_stage not in self.pipeline.__dict__:
+                raise ValueError(f"begin_stage {self.begin_stage} not found in pipeline")
+            for stage, cfg_stage in self.pipeline.__dict__.items():
+                if stage != self.begin_stage:
+                    cfg_stage.num_steps = 0
+                    logger.info(f"Skipping stage: {stage}")
+                else:
+                    logger.info(f"Starting stage: {stage}")
+                    break

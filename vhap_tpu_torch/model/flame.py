@@ -56,6 +56,25 @@ def build_uniform_laplacian(num_verts: int, faces: np.ndarray):
     return nbr_idx, nbr_w
 
 
+def laplacian_apply(nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """L @ x for x (..., V, C): neighbor average minus self."""
+    gathered = x[..., nbr_idx, :]                 # (..., V, D, C)
+    avg = torch.einsum("...vdc,vd->...vc", gathered, nbr_w)
+    return avg - x
+
+
+def laplacian_blur_apply(nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
+                         w: torch.Tensor) -> torch.Tensor:
+    """(L - 2*diag(L)) @ w / 2 = (w + neighbor-average) / 2.
+
+    The vertex-weight blur from vhap/model/tracker.py:607-614.
+    """
+    gathered = w[..., nbr_idx, :]
+    avg = torch.einsum("...vdc,vd->...vc", gathered, nbr_w)
+    return (w + avg) / 2
+
+
 class FlameHead(nn.Module):
     """FLAME model constants (buffers) + forward.
 

@@ -5,8 +5,10 @@ Counterpart of vhap_tpu/ops/interp_pallas.py (the forward of
 computes the whole per-pixel chain of the render: barycentrics,
 perspective division, z/w, uv screen derivatives, normal and uv
 interpolation, and passes the vertex ids, flag rows and antialias planes
-through. `fused_interp` launches the CUDA kernel K2 (csrc/interp.cu) for
-CUDA tensors; `fused_interp_plain` is its plain PyTorch version.
+through. `fused_interp` launches the CUDA kernel K2f (csrc/interp.cu) for
+CUDA tensors, and its backward the kernel K2b (csrc/interp_bwd.cu);
+`fused_interp_plain` is their plain PyTorch version (autograd gives the
+backward), and `fused_interp_bwd_plain` the plain version of K2b alone.
 
 Input face table (B, C, F), C = 36 + nf:
   [0:12)  PLANE_KEYS: a0x a0y a0c a1x a1y a1c iw0 iw1 iw2 z0 z1 z2
@@ -28,8 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from vhap_tpu_torch.ops.kernels import BACKWARD_NOT_PORTED, Kernel, c_float, \
-    c_int, c_ptr, check_cuda_tensor
+from vhap_tpu_torch.ops.kernels import Kernel, c_float, c_int, c_ptr, \
+    check_cuda_tensor
 from vhap_tpu_torch.ops.rasterize import pixel_grid
 
 N_FIXED_IN = 36    # input rows besides the nf flag rows
@@ -106,7 +108,7 @@ def pixel_math(s: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
 
 def fused_interp_plain(packed: torch.Tensor, tri_id: torch.Tensor,
                        n_flags: int):
-    """Plain version of K2: (B, 36+nf, F) tables + tri_id (B, H, W) ->
+    """Plain version of K2f: (B, 36+nf, F) tables + tri_id (B, H, W) ->
     ((B, 20+nf, H, W) channels, overflow = 0)."""
     B, H, W = tri_id.shape
     C = packed.shape[1]
@@ -124,42 +126,94 @@ def fused_interp_plain(packed: torch.Tensor, tri_id: torch.Tensor,
     return torch.where(fg[:, None], out, torch.zeros_like(out)), 0
 
 
+def fused_interp_bwd_plain(packed: torch.Tensor, tri_id: torch.Tensor,
+                           g: torch.Tensor, n_flags: int) -> torch.Tensor:
+    """Plain version of K2b: the gradient of `fused_interp_plain`'s
+    channels with respect to the (B, 36+nf, F) table, for the cotangent g
+    (B, 20+nf, H, W). A background pixel contributes nothing (its output
+    is 0 whatever the table holds)."""
+    with torch.enable_grad():
+        p = packed.detach().requires_grad_(True)
+        out, _ = fused_interp_plain(p, tri_id, n_flags)
+        (d_packed,) = torch.autograd.grad(out, p, g)
+    return d_packed
+
+
 FUSED_INTERP = Kernel("fused_interp", "vhap_fused_interp",
                       [c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int,
                        c_float, c_float, c_ptr])
+FUSED_INTERP_BWD = Kernel("fused_interp_bwd", "vhap_fused_interp_bwd",
+                          [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
+                           c_int, c_float, c_float, c_ptr])
+
+
+def _check_shapes(packed, tri_id, n_flags):
+    check_cuda_tensor("tri_id", tri_id, torch.int32, 3)
+    check_cuda_tensor("packed", packed, torch.float32, 3)
+    B, C, _ = packed.shape
+    if C != N_FIXED_IN + n_flags or tri_id.shape[0] != B:
+        raise ValueError(f"packed {tuple(packed.shape)} and tri_id "
+                         f"{tuple(tri_id.shape)} disagree (n_flags={n_flags})")
+
+
+def _launch_bwd(table: torch.Tensor, tri_id: torch.Tensor, g: torch.Tensor,
+                n_flags: int) -> torch.Tensor:
+    """K2b on the (B, F, C) table: -> d_packed (B, C, F)."""
+    B, F, C = table.shape
+    H, W = tri_id.shape[1:]
+    g = g.contiguous()
+    check_cuda_tensor("grad", g, torch.float32, 4)
+    if tuple(g.shape) != (B, N_FIXED_OUT + n_flags, H, W):
+        raise ValueError(f"grad {tuple(g.shape)} is not the forward's output "
+                         f"shape {(B, N_FIXED_OUT + n_flags, H, W)}")
+    d_table = torch.zeros_like(table)
+    FUSED_INTERP_BWD(table.data_ptr(), tri_id.data_ptr(), g.data_ptr(), B, F,
+                     H, W, n_flags, 2.0 / W, 2.0 / H, d_table.data_ptr())
+    return d_table.transpose(1, 2)
 
 
 class _FusedInterp(torch.autograd.Function):
-    """K2 launch; its backward (the adjoint of pixel_math summed per face,
-    TPU kernel _bwd_kernel_flat) comes with the training slice."""
+    """K2f launch; its backward launches K2b (the adjoint of pixel_math
+    summed per face, TPU kernel _bwd_kernel_flat). The forward saves the
+    (B, F, C) table and tri_id; K2b re-reads each pixel's face row."""
 
     @staticmethod
     def forward(ctx, packed, tri_id, n_flags):
-        check_cuda_tensor("tri_id", tri_id, torch.int32, 3)
-        check_cuda_tensor("packed", packed, torch.float32, 3)
+        _check_shapes(packed, tri_id, n_flags)
         B, C, F = packed.shape
-        if C != N_FIXED_IN + n_flags or tri_id.shape[0] != B:
-            raise ValueError(f"packed {tuple(packed.shape)} and tri_id "
-                             f"{tuple(tri_id.shape)} disagree (n_flags={n_flags})")
         H, W = tri_id.shape[1:]
         table = packed.transpose(1, 2).contiguous()              # (B, F, C)
         out = torch.empty((B, N_FIXED_OUT + n_flags, H, W),
                           dtype=torch.float32, device=packed.device)
         FUSED_INTERP(table.data_ptr(), tri_id.data_ptr(), B, F, H, W, n_flags,
                      2.0 / W, 2.0 / H, out.data_ptr())
+        ctx.save_for_backward(table, tri_id)
+        ctx.n_flags = n_flags
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(BACKWARD_NOT_PORTED.format("fused interp"))
+        table, tri_id = ctx.saved_tensors
+        return _launch_bwd(table, tri_id, grad, ctx.n_flags), None, None
+
+
+def fused_interp_bwd(packed: torch.Tensor, tri_id: torch.Tensor,
+                     g: torch.Tensor, n_flags: int) -> torch.Tensor:
+    """K2b alone: the table gradient (B, 36+nf, F) of fused_interp for the
+    cotangent g (B, 20+nf, H, W). CUDA tensors go through the kernel, CPU
+    tensors through `fused_interp_bwd_plain`."""
+    if packed.device.type == "cpu":
+        return fused_interp_bwd_plain(packed, tri_id, g, n_flags)
+    _check_shapes(packed, tri_id, n_flags)
+    return _launch_bwd(packed.transpose(1, 2).contiguous(), tri_id, g, n_flags)
 
 
 def fused_interp(packed: torch.Tensor, tri_id: torch.Tensor, n_flags: int):
     """(B, 36+nf, F) face tables + tri_id (B, H, W) ->
     ((B, 20+nf, H, W) channels, overflow = 0).
 
-    CUDA tensors go through kernel K2; CPU tensors through
-    `fused_interp_plain`.
+    CUDA tensors go through kernel K2f (and K2b backward); CPU tensors
+    through `fused_interp_plain`.
     """
     if packed.device.type == "cpu":
         return fused_interp_plain(packed, tri_id, n_flags)

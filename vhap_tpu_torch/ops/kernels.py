@@ -36,19 +36,20 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # visibility and interp must round every product and sum on its own, as
 # PyTorch's elementwise ops do, so that they reproduce the plain versions
-# bit for bit; the texel gather may contract to FMA.
+# bit for bit; interp's backward too, because its plane and 1/w rows are
+# ill-conditioned on sliver faces (contracting to FMA moves them by ~3e-4
+# of a row's largest gradient at the bench's shapes). The texel gather and
+# scatter may contract to FMA.
 SOURCES: Dict[str, List[str]] = {
     "errors.cu": [],
     "visibility.cu": ["--fmad=false"],
     "interp.cu": ["--fmad=false"],
+    "interp_bwd.cu": ["--fmad=false"],
     "texture_fetch.cu": [],
+    "texture_scatter.cu": [],
 }
 
 c_ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-BACKWARD_NOT_PORTED = (
-    "backward kernel is ported in slice 2: the {} kernel is forward-only "
-    "until then")
 
 
 @dataclass

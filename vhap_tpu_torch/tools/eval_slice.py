@@ -5,7 +5,8 @@ texture 2048, n_shape=300, n_expr=100, SH lighting, antialias, residual
 texture and static offset, on the FLAME asset loader's head. The targets
 are rendered from perturbed parameters and composited on white; every
 random number comes from one numpy seed. Used by chip_smoke.py and
-tools/profile_eval.py; the tests build it at a tiny size on the CPU.
+tools/profile_eval.py, and by tools/train_slice.py for the train step's
+scene; the tests build it at a tiny size on the CPU.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ class EvalSlice:
     params: P.Params
     batch: Dict[str, torch.Tensor]
     image_size: Tuple[int, int]
+    get_albedo: Callable     # params -> (1, 3, T, T) albedo
     make_energy: Callable    # use_kernels -> energy(params, batch)
 
 
@@ -90,4 +92,4 @@ def build_eval_slice(device=None, batch_size: int = 16,
     batch["lmk2d"] = torch.cat([(xy[..., :1] * W + W) / 2,
                                 (xy[..., 1:] * H + H) / 2,
                                 torch.ones_like(xy[..., :1])], -1)
-    return EvalSlice(cfg, head, params, batch, (H, W), make_energy)
+    return EvalSlice(cfg, head, params, batch, (H, W), get_albedo, make_energy)

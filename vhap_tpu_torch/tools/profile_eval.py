@@ -1,14 +1,16 @@
-"""Where the evaluation step's device time goes, on one CUDA card.
+"""Where the evaluation or train step's device time goes, on one CUDA card.
 
-    python -m vhap_tpu_torch.tools.profile_eval [--steps 5] [--top 25]
+    python -m vhap_tpu_torch.tools.profile_eval [--stage rgb_sequential_tracking]
+        [--steps 5] [--top 25]
 
-Builds the bench-width evaluation step (tools/eval_slice.py), warms it up,
-records --steps steps with torch.profiler (CPU and CUDA activities) and
-prints one JSON line: the step's wall time (host clock around a
-synchronize), the device's busy time per step (sum of kernel and memory
-op times on the card) and idle share, and the --top device ops by time per
-step. The profiler's own cost is in the wall time; the device times are
-the card's.
+Builds the bench-width evaluation step (tools/eval_slice.py) or, with
+--stage, that stage's train step (tools/train_slice.py: forward, backward
+and Adam, disturbance on), warms it up, records --steps steps with
+torch.profiler (CPU and CUDA activities) and prints one JSON line: the
+step's wall time (host clock around a synchronize), the device's busy time
+per step (sum of kernel and memory op times on the card) and idle share,
+and the --top device ops by time per step. The profiler's own cost is in
+the wall time; the device times are the card's.
 """
 
 from __future__ import annotations
@@ -22,22 +24,47 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--top", type=int, default=25)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_eval: no CUDA device; it profiles the card only")
-    torch.backends.cuda.matmul.allow_tf32 = False
+def _eval_step():
     from vhap_tpu_torch.tools.eval_slice import build_eval_slice
-
     s = build_eval_slice(device="cuda")
     energy = s.make_energy(True)
 
     def step():
         with torch.no_grad():
             energy(s.params, s.batch)
+    return step, int(s.batch["rgb"].shape[0])
+
+
+def _train_step(stage: str):
+    from vhap_tpu_torch.tools.train_slice import build_train_slice
+    ts = build_train_slice(device="cuda", stage=stage)
+    init, step_fn = ts.make_step(True, True)
+    state = {"params": ts.eval.params}
+    state["opt"] = init(state["params"])
+    gen = ts.generator(0)
+
+    def step():
+        state["params"], state["opt"], _, _ = step_fn(
+            state["params"], state["opt"], ts.eval.batch, gen)
+    return step, int(ts.eval.batch["rgb"].shape[0])
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--stage", default=None,
+                    help="a training stage of cfg.pipeline (default: the eval step)")
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_eval: no CUDA device; it profiles the card only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    run, batch = _train_step(args.stage) if args.stage else _eval_step()
+
+    def step():
+        run()
         torch.cuda.synchronize()
 
     for _ in range(3):
@@ -63,8 +90,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "card": smi, "steps": args.steps, "batch": int(s.batch["rgb"].shape[0]),
-        "wall_ms_per_step": wall_ms,
+        "card": smi, "step": args.stage or "eval", "steps": args.steps,
+        "batch": batch, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy if rows else "not measured",
         "device_idle_share": 1.0 - busy / wall_ms if rows else "not measured",
         "device_ops": len(rows), "top": rows[:args.top]}))
