@@ -43,6 +43,30 @@ Phases (any failure ends the run with a non-zero exit):
      1e-4 relative, each optimizable leaf's gradient to 1e-3 * max|g|;
      then the train step's time (disturbance on), tracked frames/s =
      16 / (50 * step) (bench.py:186), peak memory and the plain step's time;
+  9. the vis path (tools/vis_slice.py, the eval step's scene): launch
+     counts set to 0, one `render_rgba_vis` and one gradient of the
+     nvdiffrast-style chain (rasterize -> interpolate -> texture_sample ->
+     shade -> antialias_rast) with a seeded random cotangent, counts read
+     back; K5 (the visibility kernel under rasterize()), K6 forward and
+     backward, K3 and K4 must each have launched; outputs finite, gradients
+     finite and nonzero;
+ 10. K5: rasterize()'s tri_id identical to visibility_plain at the vis
+     inputs (cull on) and on the UV layout at 2048^2 (cull off, batch 1);
+ 11. K6 forward bit-identical to torch.gather at each of the path's gathers
+     (rast planes C=12, corner normals 9, corner uvs 6, AA planes 6 and
+     vertex ids 3); 12. K6 backward within 1e-5 * max|ref| per channel of a
+     float64 scatter_add_, for a random cotangent on every pixel; both
+     timed and bounded as in 4, with torch.gather / scatter_add_ as the
+     library calls;
+ 13. the vis render through the kernels vs use_kernels=False, every output
+     within 1e-5 absolute, and K3 at the render's unmasked texture call;
+ 14. the chain's gradients (vertices, texture) through the kernels vs the
+     plain versions within 1e-3 * max|g|; the vis render's time and
+     frames/s, kernels and plain;
+ 15. the entry points on the card, into a temporary directory:
+     make_synthetic_sequence (16 frames at 512^2), generate_multiview (16
+     cameras x 2 frames at 512^2) and generate_flame_uvmask (2048^2, the
+     synthetic head's regions), timed per frame;
 then one JSON line of the kernels, nvidia-smi's line, and the result line
 {"ok": true, "device": {...}} last.
 """
@@ -75,6 +99,9 @@ K2B_FLOPS_PER_FG_PIXEL = 320
 K4_FLOPS_PER_LIVE_PIXEL_TAP = 5   # d_wgt: 3 mul + 2 add, every tap of a live pixel
 K4_FLOPS_PER_LIVE_TAP = 6         # dflat: 3 channels x (mul + atomic add)
 TRAIN_STEPS_PER_BATCH = 50        # bench.py STEPS_PER_BATCH: frames/s = B / (50 step)
+UV_RES = 2048                     # the UV-mask bake (generate_flame_uvmask's default)
+SEQ_FRAMES = 16                   # make_synthetic_sequence frames at 512^2
+MV_CAMS, MV_FRAMES = 16, 2        # generate_multiview cameras x frames at 512^2
 
 
 def log(msg: str) -> None:
@@ -152,14 +179,7 @@ def check_k1(s, verts_clip):
                            f"{n_diff} pixels")
     setup = face_setup(verts_clip, faces)
     rows = pack_setup_rows(setup)
-    # pixel centers each valid face tests: its widened, clamped bbox
-    span = (setup["bbox"] + 1.0) / torch.tensor(
-        [2.0 / W, 2.0 / H, 2.0 / W, 2.0 / H], device="cuda") - 0.5
-    nw = (torch.clamp(torch.ceil(span[..., 2]) + 1, max=W - 1)
-          - torch.clamp(torch.floor(span[..., 0]) - 1, min=0) + 1).clamp(min=0)
-    nh = (torch.clamp(torch.ceil(span[..., 3]) + 1, max=H - 1)
-          - torch.clamp(torch.floor(span[..., 1]) - 1, min=0) + 1).clamp(min=0)
-    n_cand = float((nw * nh * setup["valid"]).sum())
+    n_cand = k1_candidates(setup, H, W)
     n_valid = int(setup["valid"].sum())
     n_rows = rows.shape[0] * rows.shape[1]
     # timed: the launch on the packed setup rows (the plain version's time
@@ -262,7 +282,8 @@ def step_inputs(ts, params):
                      translation=sl["translation"], return_landmarks=False,
                      static_offset=params.get("static_offset"))
         K, RT = fill_cam_params(batch, params, False, (H, W))
-        rast = rasterize_mesh(verts, head.faces, RT, K, (H, W), RenderSettings())
+        rast = rasterize_mesh(verts, head.faces, RT, K, (H, W), RenderSettings(),
+                              with_attrs=False)
         packed, nf = face_tables(
             rast, head.faces, render_verts_uv(head, "cuda"), head.textures_idx,
             RenderSettings(),
@@ -483,6 +504,287 @@ def train_timing(ts, t0):
         f"{ms_p:.3f} ms (median of 3); run {time.perf_counter() - t0:.1f} s")
 
 
+def check_vis_path(vs, kernels):
+    """Phase 9: the vis path through the kernels, counts zeroed before and
+    read after: one render_rgba_vis and one gradient of the differentiable
+    chain (tools/vis_slice.py) with a seeded random cotangent."""
+    B = vs.verts.shape[0]
+    H, W = vs.image_size
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cot = torch.randn((B, H, W, 4), generator=gen, device="cuda")
+    for k in kernels.values():
+        k.launches = 0
+    out = vs.render(True)
+    verts = vs.verts.clone().requires_grad_(True)
+    tex = vs.tex.clone().requires_grad_(True)
+    gv, gt = torch.autograd.grad(vs.grad_loss(verts, tex, cot, True), (verts, tex))
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"[vis] launches in one vis render + its gradient: {launches}")
+    for name in ("K5 visibility", "K6f plane_gather", "K6b plane_gather_bwd",
+                 "K3 texel_fetch", "K4 texel_scatter"):
+        if launches[name] < 1:
+            raise RuntimeError(f"{name} was not launched on the vis path")
+    for key, shape in (("rgba", (B, H, W, 4)), ("albedo", (B, H, W, 3)),
+                       ("normal", (B, H, W, 3)), ("diffuse", (B, H, W, 3))):
+        if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
+            raise RuntimeError(f"vis {key}: shape {tuple(out[key].shape)}, "
+                               f"expected {shape}, or values not finite")
+    fg_share = float(out["rgba"][..., 3].gt(0).float().mean())
+    if not (0.02 < fg_share < 0.9 and torch.isfinite(gv).all()
+            and torch.isfinite(gt).all() and float(gv.abs().max()) > 0
+            and float(gt.abs().max()) > 0):
+        raise RuntimeError(f"implausible vis path: fg share {fg_share}, "
+                           f"gradients finite and nonzero?")
+    log(f"[vis] fg share {fg_share:.4f}; max|g| verts {float(gv.abs().max()):.6g} "
+        f"tex {float(gt.abs().max()):.6g}")
+    return launches, cot
+
+
+def check_k5(vs):
+    """K5: rasterize()'s visibility through the kernel, tri_id identical to
+    visibility_plain at the vis inputs (cull on) and on the UV layout at
+    2048^2 (cull off, batch 1)."""
+    from vhap_tpu_torch.ops.rasterize import (_Visibility, face_setup,
+                                              pack_setup_rows, rasterize,
+                                              visibility_plain)
+    from vhap_tpu_torch.ops.render_uvmap import transform_vt
+    head, (H, W) = vs.eval.head, vs.image_size
+    clip = cam_clip(vs)
+    notes = []
+    for name, vc, faces, size, cull in (
+            ("vis", clip, head.faces, (H, W), True),
+            ("uv", transform_vt(head.verts_uvs), head.textures_idx,
+             (UV_RES, UV_RES), False)):
+        with torch.no_grad():
+            tri_k = rasterize(vc, faces, size, cull_backfaces=cull)[2]
+        tri_p, _ = visibility_plain(vc, faces, *size, cull)
+        n_diff = int((tri_k != tri_p).sum())
+        if n_diff:
+            raise RuntimeError(f"K5 ({name}): tri_id differs from the plain "
+                               f"version on {n_diff} pixels")
+        rows = pack_setup_rows(face_setup(vc, faces, cull))
+        ms = cuda_ms(lambda: _Visibility.apply(rows, *size))
+        notes.append(f"{name} {size[0]}x{size[1]} B{vc.shape[0]} cull "
+                     f"{'on' if cull else 'off'}: identical on {tri_k.numel()} "
+                     f"pixels, {int((tri_k > 0).sum())} covered, kernel "
+                     f"{ms:.4f} ms")
+        if name == "vis":
+            tri_vis = tri_k
+    log("[K5] " + "; ".join(notes))
+    setup = face_setup(clip, head.faces, True)
+    rows = pack_setup_rows(setup)
+    n_rows, n_valid = rows.shape[0] * rows.shape[1], int(setup["valid"].sum())
+    return tri_vis, dict(
+        name="K5 visibility", source="vhap_tpu_torch/csrc/visibility.cu",
+        replaces="vhap_tpu/ops/rasterize_pallas.py:62", max_abs_err=0.0,
+        kernel=lambda: _Visibility.apply(rows, H, W),
+        plain=lambda: visibility_plain(clip, head.faces, H, W),
+        # as K1: the used fields of a valid face's row, VALID of the others,
+        # the id map written; the candidates its valid faces test
+        n_bytes=(n_valid * K1_ROW_FIELDS_READ + (n_rows - n_valid)) * 4
+                + clip.shape[0] * H * W * 4,
+        n_flops=k1_candidates(setup, H, W) * K1_FLOPS_PER_CANDIDATE,
+        note="rasterize() through K1's kernel, timed at the vis inputs; "
+             + "; ".join(notes))
+
+
+def cam_clip(vs):
+    from vhap_tpu_torch.ops import camera as cam
+    return cam.camera_to_clip(cam.world_to_camera(vs.verts, vs.RT), vs.K,
+                              vs.image_size)
+
+
+def k1_candidates(setup, H, W) -> float:
+    """Pixel centers the valid faces test: their widened, clamped bboxes."""
+    span = (setup["bbox"] + 1.0) / torch.tensor(
+        [2.0 / W, 2.0 / H, 2.0 / W, 2.0 / H], device="cuda") - 0.5
+    nw = (torch.clamp(torch.ceil(span[..., 2]) + 1, max=W - 1)
+          - torch.clamp(torch.floor(span[..., 0]) - 1, min=0) + 1).clamp(min=0)
+    nh = (torch.clamp(torch.ceil(span[..., 3]) + 1, max=H - 1)
+          - torch.clamp(torch.floor(span[..., 1]) - 1, min=0) + 1).clamp(min=0)
+    return float((nw * nh * setup["valid"]).sum())
+
+
+def check_k6(vs, tri_id):
+    """K6 forward bit-identical to its plain version at each of the vis
+    path's gathers; the backward within 1e-5 * max|ref| per channel of a
+    float64 scatter_add_ for a random cotangent on every pixel (face 0
+    takes every background pixel's)."""
+    from vhap_tpu_torch.ops.antialias import aa_tables
+    from vhap_tpu_torch.ops.plane_gather import (plane_gather, plane_gather_bwd,
+                                                 plane_gather_bwd_plain,
+                                                 plane_gather_plain)
+    from vhap_tpu_torch.ops.rasterize import corner_tables, rast_tables
+    from vhap_tpu_torch.ops.shading import compute_v_normals
+    head = vs.eval.head
+    clip = cam_clip(vs)
+    with torch.no_grad():
+        aa, vid = aa_tables(clip, head.faces)
+        tables = {"rast planes": rast_tables(clip, head.faces),
+                  "corner normals": corner_tables(
+                      compute_v_normals(vs.verts, head.faces), head.faces),
+                  "corner uvs": corner_tables(vs.verts_uv[None], head.textures_idx),
+                  "AA planes": aa, "vertex ids": vid}
+        for name, t in tables.items():
+            if not torch.equal(plane_gather(t, tri_id), plane_gather_plain(t, tri_id)):
+                raise RuntimeError(f"K6 forward differs from torch.gather at the "
+                                   f"{name} ({tuple(t.shape)})")
+    log("[K6] forward bit-identical to the plain version at " + ", ".join(
+        f"{n} C={t.shape[1]} (table batch {t.shape[0]})" for n, t in tables.items()))
+
+    packed = tables["rast planes"].contiguous()
+    B, C, F = packed.shape
+    H, W = tri_id.shape[1:]
+    P = H * W
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g = torch.randn((B, C, H, W), generator=gen, device="cuda")
+    d_k = plane_gather_bwd(tri_id, g, B, F)
+    d_ref = plane_gather_bwd_plain(tri_id, g.double(), B, F)
+    d_p32 = plane_gather_bwd_plain(tri_id, g, B, F)
+    scale = d_ref.abs().amax(dim=(0, 2))
+    rel = float(((d_k.double() - d_ref).abs().amax(dim=(0, 2)) / scale).max())
+    rel_p32 = float(((d_p32.double() - d_ref).abs().amax(dim=(0, 2)) / scale).max())
+    if not rel <= 1e-5:
+        raise RuntimeError(f"K6 backward: error {rel} of a channel's max|ref|")
+    err = float((d_k.double() - d_ref).abs().max())
+    n_bg = int((tri_id == 0).sum())
+    n_faces = int(torch.unique(torch.clamp(tri_id - 1, min=0)).numel())
+    idx = torch.clamp(tri_id.long() - 1, min=0).reshape(B, 1, P).expand(B, C, P)
+    g_flat = g.reshape(B, C, P)
+    fwd = dict(
+        name="K6f plane_gather", source="vhap_tpu_torch/csrc/plane_gather.cu",
+        replaces="vhap_tpu/ops/plane_pallas.py:75", max_abs_err=0.0,
+        kernel=lambda: plane_gather(packed, tri_id),
+        plain=lambda: plane_gather_plain(packed, tri_id),
+        library=lambda: torch.gather(packed, 2, idx),
+        # tri_id read, the planes written, each touched face's rows read once
+        n_bytes=B * P * 4 + B * C * P * 4 + n_faces * C * 4, n_flops=0.0,
+        note=f"C={C} rast planes, bit-identical; {n_faces} faces touched "
+             f"(face 0 by {n_bg} background pixels); library: torch.gather "
+             f"with its index formed before the timed region")
+    bwd = dict(
+        name="K6b plane_gather_bwd", source="vhap_tpu_torch/csrc/plane_gather.cu",
+        replaces="vhap_tpu/ops/plane_pallas.py:90", max_abs_err=err,
+        max_rel_err=rel,
+        kernel=lambda: plane_gather_bwd(tri_id, g, B, F),
+        plain=lambda: plane_gather_bwd_plain(tri_id, g, B, F),
+        library=lambda: torch.zeros((B, C, F), device="cuda").scatter_add_(
+            2, idx, g_flat),
+        # the cotangent and tri_id read, the whole table written
+        n_bytes=B * C * P * 4 + B * P * 4 + B * C * F * 4,
+        n_flops=float(B * C * P),
+        note=f"C={C}, cotangent on all {B * P} pixels ({n_bg} background); "
+             f"worst channel {rel:.3g} of max|ref| against float64 "
+             f"scatter_add_ (float32 scatter_add_: {rel_p32:.3g}); library: "
+             f"scatter_add_ with its index formed before the timed region")
+    return fwd, bwd
+
+
+def check_vis_plain(vs, cot):
+    """Phase 13-14: the vis render and its gradient through the kernels
+    against the plain versions (use_kernels=False): every output within
+    1e-5 absolute, each gradient within 1e-3 * max|g|; K3 at the render's
+    unmasked texture call; the render's time."""
+    from vhap_tpu_torch.ops.rasterize import interpolate, rasterize
+    from vhap_tpu_torch.ops.texture import build_mip_pyramid, trilinear_taps
+    from vhap_tpu_torch.ops.texture_fetch import weighted_fetch, weighted_fetch_plain
+    out_k, out_p = vs.render(True), vs.render(False)
+    errs = {k: float((out_k[k] - out_p[k]).abs().max()) for k in out_k}
+    if not all(e <= 1e-5 for e in errs.values()):
+        raise RuntimeError(f"vis render, kernels vs plain: {errs}")
+    grads = []
+    for use_kernels in (True, False):
+        verts = vs.verts.clone().requires_grad_(True)
+        tex = vs.tex.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(
+            vs.grad_loss(verts, tex, cot, use_kernels), (verts, tex)))
+    g_err = {}
+    for name, gk, gp in zip(("verts", "tex"), *grads):
+        scale = float(gp.abs().max())
+        g_err[name] = float((gk - gp).abs().max()) / scale
+        if not g_err[name] <= 1e-3:
+            raise RuntimeError(f"vis gradient of {name}: {g_err[name]} of max|g|")
+    log("[vis] kernels vs plain: max abs error " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()) + "; gradient err / max|g| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in g_err.items()))
+
+    # K3 at this call: every pixel fetches (no coverage mask)
+    head = vs.eval.head
+    with torch.no_grad():
+        rast, rast_db, _ = rasterize(cam_clip(vs), head.faces, vs.image_size)
+        texc, texd = interpolate(vs.verts_uv[None], rast, head.textures_idx,
+                                 rast_db=rast_db, diff_attrs="all")
+        tex = vs.tex.permute(0, 2, 3, 1)
+        flat, offsets, sizes = build_mip_pyramid(tex)
+        idx, wgt = trilinear_taps(tex.shape[1:3], offsets, sizes, texc, texd)
+        flat1, idx, wgt = flat[0].contiguous(), idx.contiguous(), wgt.contiguous()
+        err3 = float((weighted_fetch(flat1, idx, wgt)
+                      - weighted_fetch_plain(flat1, idx, wgt)).abs().max())
+    if not err3 <= 1e-5:
+        raise RuntimeError(f"K3 at the vis call: error {err3}")
+    log(f"[K3] at the vis render's call ({int((wgt != 0).sum())} live taps of "
+        f"{wgt.numel()}): abs err {err3:.3g}, kernel "
+        f"{cuda_ms(lambda: weighted_fetch(flat1, idx, wgt)):.4f} ms")
+
+    def render_ms(use_kernels, warmup, reps):
+        times = []
+        for _ in range(warmup + reps):
+            t = time.perf_counter()
+            vs.render(use_kernels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return statistics.median(times[warmup:]) * 1e3
+
+    B = vs.verts.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    ms_k = render_ms(True, 2, 10)
+    peak = torch.cuda.max_memory_allocated()
+    ms_p = render_ms(False, 1, 3)
+    log(f"[step] vis render {ms_k:.3f} ms (median of 10), {B / ms_k * 1e3:.2f} "
+        f"frames/s, peak memory {peak / 2**30:.3f} GiB; through the plain "
+        f"versions {ms_p:.3f} ms (median of 3), {B / ms_p * 1e3:.2f} frames/s")
+
+
+def check_entry_points(vs):
+    """Phase 15: the synthetic generators and the UV-mask baker on the card,
+    writing into a temporary directory, timed per frame."""
+    import tempfile
+    from pathlib import Path
+
+    from vhap_tpu_torch.generate_flame_uvmask import generate as bake
+    from vhap_tpu_torch.tools.make_synthetic_multiview import generate_multiview
+    from vhap_tpu_torch.tools.make_synthetic_sequence import generate
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        generate(root / "seq", n_frames=SEQ_FRAMES, size=512)
+        t_seq = time.perf_counter() - t
+        n = len(list((root / "seq" / "images").glob("*.jpg")))
+        t = time.perf_counter()
+        _, cams = generate_multiview(root / "mv", n_cams=MV_CAMS, n_frames=MV_FRAMES,
+                                     size=512)
+        t_mv = time.perf_counter() - t
+        n_mv = len(list((root / "mv" / "001" / "SEN-01" / "images").glob("*.jpg")))
+        t = time.perf_counter()
+        masks = bake(root / "uv", resolution=UV_RES, head=vs.eval.head)
+        t_uv = time.perf_counter() - t
+        if n != SEQ_FRAMES or n_mv != MV_CAMS * MV_FRAMES or not masks or not all(
+                m.shape == (UV_RES, UV_RES) and m.any() for m in masks.values()):
+            raise RuntimeError(f"entry points wrote {n} sequence frames, {n_mv} "
+                               f"multiview images, masks {list(masks)}")
+        cover = statistics.mean(float(m.mean()) for m in masks.values())
+    log(f"[entry] make_synthetic_sequence: {SEQ_FRAMES} frames at 512^2 in "
+        f"{t_seq:.2f} s, {t_seq / SEQ_FRAMES * 1e3:.1f} ms per frame (render, "
+        f"JPEG, landmarks; head built once)")
+    log(f"[entry] generate_multiview: {MV_CAMS} cameras x {MV_FRAMES} frames at "
+        f"512^2 in {t_mv:.2f} s, {t_mv / MV_FRAMES * 1e3:.1f} ms per frame of "
+        f"{MV_CAMS} views")
+    log(f"[entry] generate_flame_uvmask: {len(masks)} regions at {UV_RES}^2 in "
+        f"{t_uv:.2f} s ({t_uv / len(masks) * 1e3:.1f} ms per region, PNG "
+        f"included); mean mask coverage {cover:.4f}")
+
+
 def main() -> int:
     smi_line = card()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in full
@@ -589,6 +891,29 @@ def main() -> int:
     # ---- 8. the train step through the plain versions; step timing ----
     check_train_plain(ts)
     train_timing(ts, t0)
+
+    # ---- 9. the vis path: render_rgba_vis + its gradient through the kernels ----
+    from vhap_tpu_torch.ops.plane_gather import PLANE_GATHER, PLANE_GATHER_BWD
+    from vhap_tpu_torch.tools.vis_slice import vis_slice_from_eval
+    vs = vis_slice_from_eval(s)
+    vis_kernels = {"K5 visibility": VISIBILITY, "K6f plane_gather": PLANE_GATHER,
+                   "K6b plane_gather_bwd": PLANE_GATHER_BWD,
+                   "K3 texel_fetch": WEIGHTED_FETCH, "K4 texel_scatter": WEIGHTED_FETCH_BWD,
+                   "K2f fused_interp": FUSED_INTERP,
+                   "K2b fused_interp_bwd": FUSED_INTERP_BWD}
+    vis_launches, cot = check_vis_path(vs, vis_kernels)
+
+    # ---- 10-12. K5 and K6 against their plain versions, timed ----
+    tri_vis, r6 = check_k5(vs)
+    r7, r8 = check_k6(vs, tri_vis)
+    rows_out += [kernel_row(r, vis_launches[r["name"]]) for r in (r6, r7, r8)]
+
+    # ---- 13-14. the vis render and gradient vs the plain path; timing ----
+    check_vis_plain(vs, cot)
+
+    # ---- 15. the entry points ----
+    check_entry_points(vs)
+    log(f"[done] run {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows_out}), flush=True)
     print(smi_line, flush=True)

@@ -110,3 +110,22 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_plane_gather_wrapper_takes_no_cpu_fallback():
+    """K6's autograd Function launches or raises; the wrapper takes the
+    plain version only for a CPU tensor."""
+    from vhap_tpu_torch.ops.plane_gather import _PlaneGather, plane_gather
+    tri = torch.zeros(1, 8, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _PlaneGather.apply(torch.zeros(1, 3, 4), tri)
+    assert plane_gather(torch.ones(1, 3, 4), tri).shape == (1, 3, 8, 8)
+
+
+def test_vis_entry_points_default_to_the_card(monkeypatch):
+    """The vis slice builds on the card unless given device='cpu'."""
+    from vhap_tpu_torch.tools.vis_slice import build_vis_slice
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_vis_slice(batch_size=1, image_size=(8, 8), tex_res=8,
+                        n_shape=2, n_expr=2)

@@ -234,3 +234,67 @@ def test_train_step_kernels_match_plain(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(E)
     assert (FUSED_INTERP_BWD.launches, WEIGHTED_FETCH_BWD.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.parametrize("table_batch,C,seed", [(2, 12, 0), (1, 3, 1), (2, 13, 2)])
+def test_plane_gather_kernel_matches_plain(dev, table_batch, C, seed):
+    """K6: the forward is a copy, bit-identical to torch.gather; the
+    backward equals scatter_add_ (in float64: face 0 sums thousands of
+    background cotangents, where float32 atomics in any order are a few
+    1e-6 of the row apart) within 1e-5 * max|ref| per channel, with a
+    cotangent on every pixel (background included: face 0's row)."""
+    from vhap_tpu_torch.ops.plane_gather import (PLANE_GATHER, PLANE_GATHER_BWD,
+                                                 plane_gather, plane_gather_bwd,
+                                                 plane_gather_bwd_plain,
+                                                 plane_gather_plain)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, F, H, W = 2, 500, 61, 203
+    packed = torch.randn(table_batch, C, F, device=dev, generator=g)
+    tri = torch.randint(0, F + 1, (B, H, W), device=dev, generator=g,
+                        dtype=torch.int32)
+    tri[:, :30] = 0                                  # mostly background rows
+    cot = torch.randn(B, C, H, W, device=dev, generator=g)
+    n0 = (PLANE_GATHER.launches, PLANE_GATHER_BWD.launches)
+    got = plane_gather(packed, tri)
+    assert torch.equal(got, plane_gather_plain(packed, tri))
+    ref = plane_gather_bwd_plain(tri, cot.double(), table_batch, F)
+    p = packed.clone().requires_grad_(True)
+    (via_autograd,) = torch.autograd.grad(plane_gather(p, tri), p, cot)
+    alone = plane_gather_bwd(tri, cot, table_batch, F)
+    torch.cuda.synchronize()
+    assert (PLANE_GATHER.launches, PLANE_GATHER_BWD.launches) == (n0[0] + 2, n0[1] + 2)
+    scale = ref.abs().amax(dim=(0, 2), keepdim=True)
+    for x in (via_autograd, alone):
+        assert x.shape == ref.shape
+        assert bool(((x.double() - ref).abs() <= 1e-5 * scale).all())
+
+
+def test_rasterize_uses_visibility_kernel_with_cull_off(dev):
+    """K5's path: rasterize() goes through the visibility kernel, with
+    culling on and off (the UV layout needs it off)."""
+    from vhap_tpu_torch.ops.rasterize import VISIBILITY, rasterize, visibility_plain
+    from vhap_tpu_torch.ops.render_uvmap import transform_vt
+    clip, faces = _scene(dev, seed=5)
+    rng = np.random.default_rng(6)
+    vt = torch.as_tensor(rng.uniform(0.05, 0.95, (200, 2)).astype(np.float32),
+                         device=dev)
+    for vc, cull, size in ((clip, True, (64, 256)), (clip, False, (64, 256)),
+                           (transform_vt(vt), False, (128, 128))):
+        n0 = VISIBILITY.launches
+        _, _, tri = rasterize(vc, faces, size, cull_backfaces=cull)
+        ref, _ = visibility_plain(vc, faces, *size, cull)
+        torch.cuda.synchronize()
+        assert VISIBILITY.launches == n0 + 1
+        assert int((tri > 0).sum()) > 100 and torch.equal(tri, ref)
+
+
+def test_render_rgba_vis_kernels_match_plain(dev):
+    """The vis render through K1, K6 and K3 equals the plain path."""
+    from vhap_tpu_torch.tools.vis_slice import build_vis_slice
+    s = build_vis_slice(device=dev, batch_size=2, image_size=(64, 128),
+                        tex_res=64, n_shape=20, n_expr=10)
+    for kw in ({}, {"shade_smooth": False}):
+        a, b = s.render(True, **kw), s.render(False, **kw)
+        assert float((a["rgba"][..., 3] > 0).float().mean()) > 0.05
+        for k in a:
+            assert float((a[k] - b[k]).abs().max()) <= 1e-5, k

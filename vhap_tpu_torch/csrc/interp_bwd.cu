@@ -38,36 +38,17 @@
 // cuts: a warp's 32 pixels span a few faces, not 32.
 #include <cuda_runtime.h>
 
+#include "warp_reduce.cuh"
+
 namespace {
+
+using vhap::reduce_peers;
 
 constexpr int kFixedIn = 36;    // rows besides the nf flag rows
 constexpr int kFixedOut = 20;   // output channels besides the nf flags
 constexpr int kMathRows = 27;   // 12 plane rows, 9 corner normals, 6 uvs
 constexpr int kPassOut = 10;    // first pass-through output channel (vids)
-constexpr unsigned kFull = 0xffffffffu;
-
-// Segmented warp sum: after the call, the lowest lane of each group of
-// lanes with equal `peers` holds the sum of the group's x. Every lane of
-// the warp must call it (tree reduction over the peers, after E. Westphal,
-// "Voting and shuffling to optimize atomic operations").
-template <int N>
-__device__ __forceinline__ void reduce_peers(unsigned peers, float (&x)[N]) {
-  const int lane = threadIdx.x & 31;
-  int rel_pos = __popc(peers & ((1u << lane) - 1u));   // peers below me
-  peers &= 0xfffffffeu << lane;                          // peers above me
-  while (__any_sync(kFull, peers)) {
-    const int next = __ffs(peers);                       // 1-based; 0 = none
-    const int src = next > 0 ? next - 1 : lane;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float t = __shfl_sync(kFull, x[i], src);
-      if (next) x[i] += t;
-    }
-    // lanes at odd positions handed their sum down: drop them
-    peers &= ~__ballot_sync(kFull, rel_pos & 1);
-    rel_pos >>= 1;
-  }
-}
+constexpr unsigned kFull = vhap::kFullMask;
 
 __global__ void fused_interp_bwd(const float* __restrict__ table,  // (B, F, C)
                                  const int* __restrict__ tri_id,   // (B, H, W)

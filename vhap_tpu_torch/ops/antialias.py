@@ -14,16 +14,22 @@ Counterpart of vhap_tpu/ops/antialias.py (the role of nvdiffrast's
     if t < 1/2 the foreground pixel receives w = 1/2 - t of the neighbour's;
   * each edge is owned by its dominant axis, so diagonal edges are not
     blended by both passes.
+
+`antialias` takes the per-pixel planes the caller already has (the fused
+interpolation's channels on the training path); `antialias_rast`, the
+nvdiffrast form, takes (color, rast, verts_clip, faces) and looks its
+planes up through the plane gather (kernel K6) first.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from vhap_tpu_torch.ops.rasterize import pixel_grid
+from vhap_tpu_torch.ops.plane_gather import plane_gather, plane_gather_plain
+from vhap_tpu_torch.ops.rasterize import face_attribute_planes, pixel_grid
 
 AA_PLANE_KEYS = ("a0x", "a0y", "a0c", "a1x", "a1y", "a1c")
 
@@ -39,6 +45,13 @@ def _pixel_planes(vid_planes: Sequence[torch.Tensor],
     for k in range(3):
         out[f"vid{k}"] = vid_planes[k]
     return out
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip with its derivative: at either bound half the gradient
+    passes (torch.clamp passes all of it). An edge through a pixel pair's
+    midpoint puts t exactly on a bound."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
 def _pair_weights(tri_id_p, tri_id_q, zw_p, zw_q, pl_p, pl_q,
@@ -88,7 +101,7 @@ def _pair_weights(tri_id_p, tri_id_q, zw_p, zw_q, pl_p, pl_q,
             t_star = torch.minimum(t, t_star)
 
     has_cross = t_star <= 1.0
-    t_star = torch.clamp(t_star, 0.0, 1.0)
+    t_star = _clip(t_star, 0.0, 1.0)
 
     # dominant-axis ownership: |ax| >= |ay| <=> edge is more vertical
     axis_ok = (torch.abs(ax_star) >= torch.abs(ay_star) if horizontal
@@ -96,8 +109,8 @@ def _pair_weights(tri_id_p, tri_id_q, zw_p, zw_q, pl_p, pl_q,
 
     w = t_star - 0.5
     active = active & has_cross & axis_ok
-    w_o = torch.clamp(w, 0.0, 0.5) * active
-    w_f = torch.clamp(-w, 0.0, 0.5) * active
+    w_o = _clip(w, 0.0, 0.5) * active
+    w_f = _clip(-w, 0.0, 0.5) * active
     return w_f, w_o, p_is_fg
 
 
@@ -156,3 +169,33 @@ def antialias(color: torch.Tensor, tri_id: torch.Tensor, zw: torch.Tensor,
     out = out + F.pad(dp, (0, 0, 0, 0, 0, 1))
     out = out + F.pad(dq, (0, 0, 0, 0, 1, 0))
     return out
+
+
+def aa_tables(verts_clip: torch.Tensor, faces: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two tables `antialias_rast` gathers: the 6 edge planes (B, 6, F),
+    differentiable with respect to verts_clip, and the corner vertex ids
+    (1, 3, F) as float32 (exact below 2^24)."""
+    p = face_attribute_planes(verts_clip, faces)
+    return (torch.stack([p[k] for k in AA_PLANE_KEYS], dim=1),
+            faces.T[None].to(torch.float32).contiguous())
+
+
+def antialias_rast(color: torch.Tensor, rast: torch.Tensor,
+                   verts_clip: torch.Tensor, faces: torch.Tensor,
+                   use_kernels: bool = True) -> torch.Tensor:
+    """Edge antialiasing in nvdiffrast's form, `dr.antialias(color, rast,
+    pos, tri)` (vhap_tpu/ops/antialias.py:154-198).
+
+    color (B, H, W, C); rast (B, H, W, 4) from `rasterize` (z/w in channel
+    2, tri_id in 3); verts_clip (B, V, 4), possibly with rows detached for
+    boundary control; faces (F, 3). The winning face's edge planes and
+    vertex ids are looked up per pixel (kernel K6 for CUDA tensors unless
+    use_kernels=False), then the pair passes of `antialias` run.
+    """
+    gather = plane_gather if use_kernels else plane_gather_plain
+    tri_id = rast[..., 3].to(torch.int32)
+    aa_tab, vid_tab = aa_tables(verts_clip, faces)
+    a_planes = gather(aa_tab, tri_id).unbind(1)
+    vid_planes = [v.to(torch.int32) for v in gather(vid_tab, tri_id).unbind(1)]
+    return antialias(color, tri_id, rast[..., 2], vid_planes, a_planes)

@@ -39,7 +39,7 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # bit for bit; interp's backward too, because its plane and 1/w rows are
 # ill-conditioned on sliver faces (contracting to FMA moves them by ~3e-4
 # of a row's largest gradient at the bench's shapes). The texel gather and
-# scatter may contract to FMA.
+# scatter may contract to FMA; the plane gather only copies and adds.
 SOURCES: Dict[str, List[str]] = {
     "errors.cu": [],
     "visibility.cu": ["--fmad=false"],
@@ -47,6 +47,7 @@ SOURCES: Dict[str, List[str]] = {
     "interp_bwd.cu": ["--fmad=false"],
     "texture_fetch.cu": [],
     "texture_scatter.cu": [],
+    "plane_gather.cu": [],
 }
 
 c_ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

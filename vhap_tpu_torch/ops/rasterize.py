@@ -10,7 +10,14 @@ Counterpart of vhap_tpu/ops/rasterize.py (reference: nvdiffrast's
    0 = background, with no bin budget, so the overflow count is always 0.
 2. **Attributes** (differentiable): per-face plane tables from clip-space
    vertices (`face_attribute_planes`), evaluated per pixel by the fused
-   interpolation (ops/interp.py).
+   interpolation (ops/interp.py) on the training path, or, on the
+   nvdiffrast-style path (`rasterize`, `interpolate`), looked up per pixel
+   by the plane gather (ops/plane_gather.py, kernel K6) and finished in
+   plain PyTorch, as the JAX package finishes them in XLA.
+
+`rasterize` is the JAX package's second caller of visibility: there its
+dense-list Pallas kernel K5 (`visibility_pallas`) computes the same winner
+as the flat one (K1), so here both go through K1's CUDA kernel.
 
 Near-plane straddlers: the port follows the JAX `xla` backend, not its
 Pallas kernel. A face with some but not all corners at w > eps is kept
@@ -25,12 +32,13 @@ x = (j+0.5)/W*2-1, y = (i+0.5)/H*2-1 (row 0 = bottom, y up).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from vhap_tpu_torch.ops.kernels import Kernel, c_float, c_int, c_ptr, \
     check_cuda_tensor
+from vhap_tpu_torch.ops.plane_gather import plane_gather, plane_gather_plain
 
 W_EPS = 1e-6     # minimum clip w for a usable vertex
 AREA_EPS = 1e-12  # minimum |signed area| (NDC^2) for a non-degenerate face
@@ -292,3 +300,156 @@ def face_attribute_planes(verts_clip: torch.Tensor,
     for i, k in enumerate(("a1x", "a1y", "a1c")):
         out[k] = torch.where(straddle, abc_h[..., 1, i], out[k])
     return out
+
+
+# ---------------------------------------------------------------------------
+# The nvdiffrast-style API: rasterize -> (rast, rast_db), interpolate
+# ---------------------------------------------------------------------------
+
+def gather_face_planes_packed(tables: torch.Tensor,
+                              fid: torch.Tensor) -> List[torch.Tensor]:
+    """(B|1, C, F) packed face tables -> list of C (B, H, W) pixel planes
+    for the face ids fid (B, H, W) >= 0 (vhap_tpu/ops/rasterize.py:468)."""
+    return list(plane_gather(tables, (fid + 1).to(torch.int32)).unbind(1))
+
+
+def gather_face_plane(table: torch.Tensor, fid: torch.Tensor) -> torch.Tensor:
+    """(B, F) face table -> (B, H, W) per-pixel plane via face ids fid."""
+    return gather_face_planes_packed(table[:, None], fid)[0]
+
+
+def rast_tables(verts_clip: torch.Tensor, faces: torch.Tensor,
+                extra_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (B, 12 + CE, F) table `fused_rast_and_planes` gathers: the
+    PLANE_KEYS rows, then extra_tables (B|1, CE, F) when given."""
+    p = face_attribute_planes(verts_clip, faces)
+    packed = torch.stack([p[k] for k in PLANE_KEYS], dim=1)
+    if extra_tables is not None:
+        packed = torch.cat(
+            [packed, extra_tables.expand(packed.shape[0], -1, -1)], dim=1)
+    return packed
+
+
+def fused_rast_and_planes(verts_clip: torch.Tensor, faces: torch.Tensor,
+                          tri_id: torch.Tensor,
+                          extra_tables: Optional[torch.Tensor],
+                          use_kernels: bool = True):
+    """rasterize_attributes + extra per-face channels in one per-pixel
+    gather (vhap_tpu/ops/rasterize.py:507-596, without tile lists).
+
+    Returns (rast (B,H,W,4), rast_db (B,H,W,4), extra planes: a list of CE
+    (B, H, W) planes, plane_overflow = 0). The extra planes are not masked:
+    background pixels carry face 0's values, as in the JAX gather.
+    """
+    H, W = tri_id.shape[1:]
+    gather = plane_gather if use_kernels else plane_gather_plain
+    planes = gather(rast_tables(verts_clip, faces, extra_tables), tri_id)
+    (a0x, a0y, a0c, a1x, a1y, a1c,
+     iw0, iw1, iw2, z0, z1, z2) = planes[:, :len(PLANE_KEYS)].unbind(1)
+    extra_planes = list(planes[:, len(PLANE_KEYS):].unbind(1))
+
+    px, py = pixel_grid(H, W, device=planes.device)
+    b0 = a0x * px + a0y * py + a0c
+    b1 = a1x * px + a1y * py + a1c
+    b2 = 1.0 - b0 - b1
+
+    zw = b0 * z0 + b1 * z1 + b2 * z2               # affine z/w
+
+    n0, n1, n2 = b0 * iw0, b1 * iw1, b2 * iw2      # perspective-correct
+    S = n0 + n1 + n2
+    S = torch.where(torch.abs(S) > 1e-12, S, torch.full_like(S, 1e-12))
+    u = n0 / S
+    vv = n1 / S
+
+    a2x, a2y = -(a0x + a1x), -(a0y + a1y)
+    n0x, n0y = a0x * iw0, a0y * iw0
+    n1x, n1y = a1x * iw1, a1y * iw1
+    n2x, n2y = a2x * iw2, a2y * iw2
+    Sx, Sy = n0x + n1x + n2x, n0y + n1y + n2y
+    inv_S2 = 1.0 / (S * S)
+    dudx = (n0x * S - n0 * Sx) * inv_S2 * (2.0 / W)
+    dudy = (n0y * S - n0 * Sy) * inv_S2 * (2.0 / H)
+    dvdx = (n1x * S - n1 * Sx) * inv_S2 * (2.0 / W)
+    dvdy = (n1y * S - n1 * Sy) * inv_S2 * (2.0 / H)
+
+    m = (tri_id > 0).to(u.dtype)
+    rast = torch.stack([u * m, vv * m, zw * m, tri_id.to(u.dtype)], dim=-1)
+    rast_db = torch.stack([dudx * m, dudy * m, dvdx * m, dvdy * m], dim=-1)
+    return rast, rast_db, extra_planes, 0
+
+
+def rasterize_attributes(verts_clip: torch.Tensor, faces: torch.Tensor,
+                         tri_id: torch.Tensor, use_kernels: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u, v, z/w, tri_id) and the uv pixel derivatives of the winning
+    faces, differentiable with respect to verts_clip (visibility frozen, as
+    in nvdiffrast). Returns rast (B, H, W, 4), rast_db (B, H, W, 4) =
+    (du/dx, du/dy, dv/dx, dv/dy) in pixel units."""
+    rast, rast_db, _, _ = fused_rast_and_planes(verts_clip, faces, tri_id,
+                                                None, use_kernels)
+    return rast, rast_db
+
+
+def rasterize(verts_clip: torch.Tensor, faces: torch.Tensor,
+              image_size: Tuple[int, int], cull_backfaces: bool = True,
+              grad_enabled: bool = True, with_overflow: bool = False,
+              use_kernels: bool = True):
+    """Full rasterization, nvdiffrast's `dr.rasterize`
+    (vhap_tpu/ops/rasterize.py:743-772): visibility + differentiable
+    attributes. Returns (rast, rast_db, tri_id (B, H, W) int32), plus the
+    dropped-faces count (always 0: no bin budget) with with_overflow.
+
+    Visibility runs kernel K1 for CUDA tensors (the JAX package's K5 on
+    this path computes the same winner); use_kernels=False takes every
+    plain version instead.
+    """
+    H, W = image_size
+    vis = visibility if use_kernels else visibility_plain
+    tri_id, overflow = vis(verts_clip.detach(), faces, H, W, cull_backfaces)
+    if not grad_enabled:
+        verts_clip = verts_clip.detach()
+    rast, rast_db = rasterize_attributes(verts_clip, faces, tri_id, use_kernels)
+    if with_overflow:
+        return rast, rast_db, tri_id, overflow
+    return rast, rast_db, tri_id
+
+
+def corner_tables(attr: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Vertex attributes (B|1, Va, C) -> the (B|1, 3C, F) corner table
+    `interpolate` gathers: corner 0's C rows, then corner 1's, then 2's."""
+    return torch.cat([attr[:, faces[:, k], :].transpose(1, 2)
+                      for k in range(3)], dim=1).contiguous()
+
+
+def interpolate(attr: torch.Tensor, rast: torch.Tensor, faces: torch.Tensor,
+                rast_db: Optional[torch.Tensor] = None,
+                diff_attrs: Optional[str] = None, use_kernels: bool = True):
+    """Barycentric attribute interpolation, nvdiffrast's `dr.interpolate`
+    (vhap_tpu/ops/rasterize.py:775-823).
+
+    attr (B|1, Va, C); rast (B, H, W, 4) from `rasterize` (its tri_id in
+    channel 3); faces (F, 3) indices into attr. Returns ((B, H, W, C),
+    None), or with rast_db and diff_attrs='all' also the screen derivatives
+    (B, H, W, 2C): the C x-derivatives, then the C y-derivatives (the JAX
+    package's order).
+    """
+    C = attr.shape[-1]
+    tri_id = rast[..., 3].to(torch.int32)
+    m = (tri_id > 0).to(rast.dtype)[:, None]
+    gather = plane_gather if use_kernels else plane_gather_plain
+    planes = gather(corner_tables(attr, faces), tri_id)
+    a0, a1, a2 = planes[:, :C], planes[:, C:2 * C], planes[:, 2 * C:]
+
+    u = rast[..., 0][:, None]
+    v = rast[..., 1][:, None]
+    w2 = 1.0 - u - v
+    out = ((u * a0 + v * a1 + w2 * a2) * m).permute(0, 2, 3, 1)
+    if diff_attrs is None:
+        return out, None
+    if rast_db is None:
+        raise ValueError("diff_attrs needs rast_db")
+    dudx, dudy = rast_db[..., 0][:, None], rast_db[..., 1][:, None]
+    dvdx, dvdy = rast_db[..., 2][:, None], rast_db[..., 3][:, None]
+    dadx = (dudx * (a0 - a2) + dvdx * (a1 - a2)) * m
+    dady = (dudy * (a0 - a2) + dvdy * (a1 - a2)) * m
+    return out, torch.cat([dadx, dady], dim=1).permute(0, 2, 3, 1)

@@ -1,18 +1,23 @@
-"""Render pipeline of the tracker's energies, in image layout.
+"""Render pipelines, in image layout.
 
-Counterpart of the fused-interpolation branch of vhap_tpu/ops/render.py
-(`rasterize_mesh(..., with_attrs=False)` + `render_rgba`, reference:
-vhap/util/render_nvdiffrast.py:216-245, 354-484): visibility (K1) ->
-vertex normals -> one packed face table -> fused interpolation (K2f,
-backward K2b) -> mip-mapped texture (K3, backward K4) -> SH shading ->
-background compositing -> cluster disturbance -> antialias. The color
-chain is float32.
+Counterpart of vhap_tpu/ops/render.py. Its two paths:
 
-The training step adds three features of the same function: the region
-texture-gradient detach (a flag row of the face table), the
-boundary-detached antialias planes, and the cluster disturbance (the
-adaptive appearance prior, `impl='sample'`; its cluster ids ride the face
-table as a second flag row).
+* The tracker's energies (`rasterize_mesh(..., with_attrs=False)` +
+  `render_rgba`, reference: vhap/util/render_nvdiffrast.py:216-245,
+  354-484): visibility (K1) -> vertex normals -> one packed face table ->
+  fused interpolation (K2f, backward K2b) -> mip-mapped texture (K3,
+  backward K4) -> SH shading -> background compositing -> cluster
+  disturbance -> antialias. The training step adds three features of the
+  same function: the region texture-gradient detach (a flag row of the face
+  table), the boundary-detached antialias planes, and the cluster
+  disturbance (the adaptive appearance prior, `impl='sample'`; its cluster
+  ids ride the face table as a second flag row).
+* The visualization render (`render_rgba_vis`, reference:
+  vhap/util/render_nvdiffrast.py:486-567), through the nvdiffrast-style
+  API: `rasterize` (visibility K1 + per-pixel planes, K6) ->
+  `interpolate` (K6) -> texture (K3) -> shading -> antialias (K6).
+
+The color chain is float32.
 """
 
 from __future__ import annotations
@@ -23,11 +28,15 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from vhap_tpu_torch.ops import camera as cam
-from vhap_tpu_torch.ops.antialias import AA_PLANE_KEYS, antialias
+from vhap_tpu_torch.ops.antialias import AA_PLANE_KEYS, antialias, antialias_rast
 from vhap_tpu_torch.ops.interp import fused_interp, fused_interp_plain
+from vhap_tpu_torch.ops.plane_gather import plane_gather, plane_gather_plain
 from vhap_tpu_torch.ops.rasterize import (PLANE_KEYS, face_attribute_planes,
-                                          visibility, visibility_plain)
-from vhap_tpu_torch.ops.shading import compute_v_normals, shade
+                                          interpolate, rasterize, visibility,
+                                          visibility_plain)
+from vhap_tpu_torch.ops.shading import (compute_face_normals,
+                                        compute_v_normals, safe_normalize,
+                                        shade)
 from vhap_tpu_torch.ops.texture import texture_sample
 from vhap_tpu_torch.ops.texture_fetch import (weighted_fetch,
                                               weighted_fetch_plain)
@@ -54,22 +63,31 @@ class RenderSettings:
 
 
 def rasterize_mesh(verts, faces, RT, K, image_size, settings: RenderSettings,
-                   with_attrs: bool = False) -> Dict:
-    """World-space mesh -> visibility buffers
-    (vhap/util/render_nvdiffrast.py:216-245). with_attrs=False only: the
-    per-pixel attributes are computed by render_rgba's fused pass."""
-    if with_attrs:
-        raise NotImplementedError(
-            "rasterize_mesh(with_attrs=True) serves the visualization path "
-            "(render_rgba_vis), which is not ported yet")
+                   grad_enabled: bool = True, with_attrs: bool = True) -> Dict:
+    """World-space mesh -> fragment buffers
+    (vhap/util/render_nvdiffrast.py:216-245).
+
+    with_attrs=True adds `rasterize`'s rast / rast_db buffers (gradients to
+    the vertices unless grad_enabled=False); with_attrs=False stops at
+    visibility, since render_rgba's fused pass computes the per-pixel
+    attributes itself.
+    """
     verts_camera = cam.world_to_camera(verts, RT)
     verts_clip = cam.camera_to_clip(verts_camera, K, image_size)
-    H, W = image_size
-    vis = visibility if settings.use_kernels else visibility_plain
-    tri_id, overflow = vis(verts_clip.detach(), faces, H, W,
-                           settings.cull_backfaces)
-    return dict(verts=verts, verts_camera=verts_camera[..., :3],
-                verts_clip=verts_clip, tri_id=tri_id, overflow=overflow)
+    out = dict(verts=verts, verts_camera=verts_camera[..., :3],
+               verts_clip=verts_clip)
+    if with_attrs:
+        rast, rast_db, tri_id, overflow = rasterize(
+            verts_clip, faces, tuple(image_size), settings.cull_backfaces,
+            grad_enabled, with_overflow=True, use_kernels=settings.use_kernels)
+        out.update(rast=rast, rast_db=rast_db)
+    else:
+        H, W = image_size
+        vis = visibility if settings.use_kernels else visibility_plain
+        tri_id, overflow = vis(verts_clip.detach(), faces, H, W,
+                               settings.cull_backfaces)
+    out.update(tri_id=tri_id, overflow=overflow)
+    return out
 
 
 def pack_face_tables(verts_clip, space_verts, faces, verts_uv, faces_uv,
@@ -328,3 +346,84 @@ def render_rgba(
         "aa": flip(aa.expand(aa.shape[:3] + (3,))),
     })
     return out
+
+
+def render_rgba_vis(
+    verts, faces, RT, K, image_size,
+    settings: RenderSettings,
+    background_color: Sequence[float] = (1.0, 1.0, 1.0),
+    v_color: Optional[torch.Tensor] = None,     # (V, 3) or (B|1, V, 3)
+    verts_uv: Optional[torch.Tensor] = None,    # (Vt, 2), v already flipped
+    faces_uv: Optional[torch.Tensor] = None,    # (F, 3)
+    tex: Optional[torch.Tensor] = None,         # (1, C, T, T)
+    lights: Optional[torch.Tensor] = None,      # (B|1, 9, 3)
+    shade_smooth: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Visualization render path (vhap/util/render_nvdiffrast.py:486-567;
+    vhap_tpu/ops/render.py:837-902). Returns (B, H, W, C) buffers flipped
+    to image orientation, and the clip-space vertices.
+
+    Albedo: the texture when verts_uv, faces_uv and tex are all given, else
+    v_color, else white. Normals: interpolated vertex normals in the
+    settings' lighting space (shade_smooth), or the winning face's normal in
+    camera space. Shading: SH with `lights` when given, else the settings'
+    lighting type. Every pixel samples the texture: no coverage mask.
+    """
+    rd = rasterize_mesh(verts, faces, RT, K, image_size, settings,
+                        grad_enabled=False)
+    rast, rast_db, tri_id = rd["rast"], rd["rast_db"], rd["tri_id"]
+    fg_mask = (tri_id > 0)[..., None]
+    use_kernels = settings.use_kernels
+
+    if shade_smooth:
+        space_verts = (verts if settings.lighting_space == "world"
+                       else rd["verts_camera"])
+        v_normal = compute_v_normals(space_verts, faces)
+        normal, _ = interpolate(v_normal, rast, faces, use_kernels=use_kernels)
+        normal = safe_normalize(normal)
+    else:
+        gather = plane_gather if use_kernels else plane_gather_plain
+        fn = compute_face_normals(rd["verts_camera"], faces)     # (B, F, 3)
+        normal = gather(fn.transpose(1, 2).contiguous(), tri_id).permute(0, 2, 3, 1)
+
+    if verts_uv is not None and faces_uv is not None and tex is not None:
+        texc, texd = interpolate(verts_uv[None], rast, faces_uv, rast_db=rast_db,
+                                 diff_attrs="all", use_kernels=use_kernels)
+        fetch = weighted_fetch if use_kernels else weighted_fetch_plain
+        albedo = texture_sample(tex.permute(0, 2, 3, 1), texc, texd, fetch=fetch)
+    elif v_color is not None:
+        if v_color.dim() == 2:
+            v_color = v_color[None]
+        albedo, _ = interpolate(v_color, rast, faces, use_kernels=use_kernels)
+    else:
+        albedo = torch.ones_like(normal)
+
+    lighting_type = "SH" if lights is not None else settings.lighting_type
+    diffuse = shade(normal, lighting_type, lights)
+
+    rgb = albedo * diffuse
+    alpha = fg_mask.to(rgb.dtype)
+    rgba = torch.cat([rgb, alpha], dim=-1)
+
+    rgba_bg = torch.tensor(list(background_color) + [0.0], dtype=rgba.dtype,
+                           device=rgba.device).expand(rgba.shape)
+    normal = torch.where(fg_mask, normal, rgba_bg[..., :3])
+    diffuse_out = torch.where(fg_mask, diffuse, rgba_bg[..., :3])
+    rgba = torch.where(fg_mask, rgba, rgba_bg)
+
+    if settings.antialias:
+        rgba_aa = antialias_rast(rgba, rast, rd["verts_clip"], faces,
+                                 use_kernels=use_kernels)
+    else:
+        rgba_aa = rgba
+
+    def flip(x):
+        return torch.flip(x, dims=[1])
+
+    return {
+        "albedo": flip(albedo),
+        "normal": flip(normal),
+        "diffuse": flip(diffuse_out),
+        "rgba": flip(rgba_aa),
+        "verts_clip": rd["verts_clip"],
+    }

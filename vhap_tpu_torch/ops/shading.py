@@ -25,6 +25,15 @@ def safe_normalize(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return x / length(x, eps)
 
 
+def compute_face_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """(B, V, 3) x (F, 3) -> unit face normals (B, F, 3)
+    (vhap/util/render_nvdiffrast.py:318-330)."""
+    v0 = verts[:, faces[:, 0]]
+    v1 = verts[:, faces[:, 1]]
+    v2 = verts[:, faces[:, 2]]
+    return safe_normalize(torch.linalg.cross(v1 - v0, v2 - v0))
+
+
 def compute_v_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
     """Area-weighted vertex normals (B, V, 3) via scatter-add
     (vhap/util/render_nvdiffrast.py:297-316)."""

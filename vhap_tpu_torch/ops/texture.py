@@ -19,15 +19,16 @@ import torch
 from vhap_tpu_torch.ops.texture_fetch import weighted_fetch
 
 
-def build_mip_pyramid(tex: torch.Tensor):
+def build_mip_pyramid(tex: torch.Tensor, max_levels: Optional[int] = None):
     """tex (B, H, W, C) -> (flat (B, N, C), offsets, sizes) with 2x2-mean mips.
 
-    Level 0 is full resolution; level i has shape (H >> i, W >> i).
+    Level 0 is full resolution; level i has shape (H >> i, W >> i). At most
+    max_levels levels (level 0 included) when given.
     """
     B, H, W, C = tex.shape
     levels: List[torch.Tensor] = [tex]
     h, w = H, W
-    while h > 1 and w > 1:
+    while h > 1 and w > 1 and (max_levels is None or len(levels) < max_levels):
         t = levels[-1][:, :h // 2 * 2, :w // 2 * 2]
         t = (t[:, 0::2, 0::2] + t[:, 0::2, 1::2]
              + t[:, 1::2, 0::2] + t[:, 1::2, 1::2]) * 0.25
@@ -124,22 +125,67 @@ def trilinear_taps(tex_size: Tuple[int, int], offsets, sizes,
     return idx, wgt
 
 
-def texture_sample(tex: torch.Tensor, uv: torch.Tensor, uv_da: torch.Tensor,
-                   mask: Optional[torch.Tensor] = None,
-                   fetch: Callable = weighted_fetch) -> torch.Tensor:
-    """nvdiffrast-compatible `linear-mipmap-linear` lookup, (B, Hi, Wi, C).
+def _bilinear_gather(tex: torch.Tensor, u: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """One level sampled bilinearly with wrap addressing
+    (vhap_tpu/ops/texture.py:77-106). tex (B|1, h, w, C); u, v (B, P) in
+    [0, 1]; returns (B, P, C)."""
+    _, h, w, C = tex.shape
+    flat = tex.reshape(tex.shape[0], h * w, C)
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = torch.remainder(x0.to(torch.int32), w)
+    y0i = torch.remainder(y0.to(torch.int32), h)
+    x1i = torch.remainder(x0i + 1, w)
+    y1i = torch.remainder(y0i + 1, h)
 
-    tex (1, H, W, C) is one texture shared by the batch: its pyramid is
-    built once and every batch element fetches from the same flat buffer.
-    mask (B, Hi, Wi) marks the pixels whose sample matters (rasterizer
-    coverage); masked-out pixels return 0 and fetch nothing. fetch is the
-    weighted texel fetch (kernel K3's wrapper, or its plain version).
+    def at(yi, xi):
+        idx = (yi * w + xi).long()
+        if flat.shape[0] == 1:
+            return flat[0][idx]                  # shared texture
+        return torch.gather(flat, 1, idx[..., None].expand(-1, -1, C))
+
+    t00, t01 = at(y0i, x0i), at(y0i, x1i)
+    t10, t11 = at(y1i, x0i), at(y1i, x1i)
+    return ((t00 * (1 - fx) + t01 * fx) * (1 - fy)
+            + (t10 * (1 - fx) + t11 * fx) * fy)
+
+
+def texture_sample(tex: torch.Tensor, uv: torch.Tensor,
+                   uv_da: Optional[torch.Tensor] = None,
+                   mask: Optional[torch.Tensor] = None,
+                   fetch: Callable = weighted_fetch,
+                   filter_mode: str = "linear-mipmap-linear",
+                   max_mip_level: Optional[int] = None) -> torch.Tensor:
+    """nvdiffrast-compatible texture lookup, (B, Hi, Wi, C)
+    (vhap_tpu/ops/texture.py:111-153).
+
+    `linear-mipmap-linear` (with uv_da (B, Hi, Wi, 4)): tex (1, H, W, C) is
+    one texture shared by the batch; its pyramid (at most max_mip_level
+    levels) is built once and every batch element fetches its 8 trilinear
+    taps from the same flat buffer. mask (B, Hi, Wi) marks the pixels whose
+    sample matters (rasterizer coverage); masked-out pixels return 0 and
+    fetch nothing; without a mask every pixel fetches. fetch is the weighted
+    texel fetch (kernel K3's wrapper, or its plain version).
+
+    `linear`, or no uv_da: one bilinear level, in plain PyTorch (tex batch
+    1 or B), as the JAX package leaves it to XLA.
     """
+    B, Hi, Wi = uv.shape[:3]
+    if filter_mode == "linear" or uv_da is None:
+        out = _bilinear_gather(tex, uv[..., 0].reshape(B, -1),
+                               uv[..., 1].reshape(B, -1))
+        return out.reshape(B, Hi, Wi, tex.shape[-1])
+    if filter_mode != "linear-mipmap-linear":
+        raise ValueError(f"unknown filter_mode {filter_mode!r}")
     if tex.shape[0] != 1:
         raise ValueError("texture_sample takes one shared texture (batch 1), "
                          f"got {tuple(tex.shape)}")
-    B, Hi, Wi = uv.shape[:3]
-    flat, offsets, sizes = build_mip_pyramid(tex)
+    flat, offsets, sizes = build_mip_pyramid(tex, max_mip_level)
     idx, wgt = trilinear_taps(tex.shape[1:3], offsets, sizes, uv, uv_da, mask)
     out = fetch(flat[0].contiguous(), idx.contiguous(), wgt.contiguous())
     return out.reshape(B, Hi, Wi, tex.shape[-1])

@@ -1,11 +1,14 @@
 """Where the evaluation or train step's device time goes, on one CUDA card.
 
-    python -m vhap_tpu_torch.tools.profile_eval [--stage rgb_sequential_tracking]
-        [--steps 5] [--top 25]
+    python -m vhap_tpu_torch.tools.profile_eval [--stage rgb_sequential_tracking
+        | --vis [--grad]] [--steps 5] [--top 25]
 
 Builds the bench-width evaluation step (tools/eval_slice.py) or, with
 --stage, that stage's train step (tools/train_slice.py: forward, backward
-and Adam, disturbance on), warms it up, records --steps steps with
+and Adam, disturbance on), or, with --vis, the visualization render
+`render_rgba_vis` on the same scene (tools/vis_slice.py; with --grad, the
+gradient of its differentiable chain for a seeded random cotangent instead),
+warms it up, records --steps steps with
 torch.profiler (CPU and CUDA activities) and prints one JSON line: the
 step's wall time (host clock around a synchronize), the device's busy time
 per step (sum of kernel and memory op times on the card) and idle share,
@@ -49,10 +52,31 @@ def _train_step(stage: str):
     return step, int(ts.eval.batch["rgb"].shape[0])
 
 
+def _vis_step(grad: bool):
+    from vhap_tpu_torch.tools.vis_slice import build_vis_slice
+    vs = build_vis_slice(device="cuda")
+    B = int(vs.verts.shape[0])
+    if not grad:
+        return lambda: vs.render(True), B
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cot = torch.randn((B,) + tuple(vs.image_size) + (4,), generator=gen,
+                      device="cuda")
+
+    def step():
+        verts = vs.verts.clone().requires_grad_(True)
+        tex = vs.tex.clone().requires_grad_(True)
+        torch.autograd.grad(vs.grad_loss(verts, tex, cot), (verts, tex))
+    return step, B
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stage", default=None,
                     help="a training stage of cfg.pipeline (default: the eval step)")
+    ap.add_argument("--vis", action="store_true",
+                    help="the visualization render (render_rgba_vis)")
+    ap.add_argument("--grad", action="store_true",
+                    help="with --vis: the gradient of the vis chain")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -61,7 +85,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    run, batch = _train_step(args.stage) if args.stage else _eval_step()
+    if args.grad and not args.vis:
+        raise SystemExit("profile_eval: --grad goes with --vis")
+    if args.vis:
+        run, batch = _vis_step(args.grad)
+        name = "vis_grad" if args.grad else "vis"
+    elif args.stage:
+        run, batch = _train_step(args.stage)
+        name = args.stage
+    else:
+        run, batch = _eval_step()
+        name = "eval"
 
     def step():
         run()
@@ -90,7 +124,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "card": smi, "step": args.stage or "eval", "steps": args.steps,
+        "card": smi, "step": name, "steps": args.steps,
         "batch": batch, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy if rows else "not measured",
         "device_idle_share": 1.0 - busy / wall_ms if rows else "not measured",
