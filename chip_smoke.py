@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's evaluation and train steps on one CUDA card and
-check them.
+"""Drive the PyTorch port on one CUDA card and check it: the evaluation and
+train steps, the visualization render, the entry points, the dense-list
+configuration, the value scatter and the tracker loop.
 
     python3 chip_smoke.py
 
@@ -67,8 +68,35 @@ Phases (any failure ends the run with a non-zero exit):
      make_synthetic_sequence (16 frames at 512^2), generate_multiview (16
      cameras x 2 frames at 512^2) and generate_flame_uvmask (2048^2, the
      synthetic head's regions), timed per frame;
-then one JSON line of the kernels, nvidia-smi's line, and the result line
-{"ok": true, "device": {...}} last.
+ 16. the dense configuration (render.bin_mode='dense', the JAX package's
+     K7 path): the eval and train steps rebuilt with it, counts zeroed
+     before each and read after (K1, K2f, K3 once in the eval step; K1, K2f,
+     K3, K2b, K4 once in the train step); against the flat configuration on
+     the same inputs and generator seed, outputs within 1e-6 absolute,
+     energy and terms 1e-6 relative, overflow 0, gradients within
+     DENSE_GRAD_TOL * max|g|, beside two flat runs' own differences (the
+     atomics' order); K2f and K2b timed at these inputs are the K7 rows;
+ 17. K8 (scatter_taps) on the train step's own taps with vals = wgt * g
+     (16 x 8 x 3 x 262,144, ~400 MB), counts zeroed: one launch; within
+     1e-5 * max|ref| of a float64 index_add_ and of K4's dflat on the same
+     taps; timed and bounded as in 4, float32 index_add_ as the library call;
+ 18. the tracker loop: GlobalTracker at full width (batch 16, 512^2,
+     texture 2048, 300/100, SH, static offset, residual texture,
+     disturbance on) and reduced depth (LOOP_STEPS, one global epoch) on a
+     32-frame sequence from the port's generator, media every
+     LOOP_MEDIA_EVERY steps into a temporary directory, counts zeroed before
+     and read after: K1, K2f, K3 once per rgb train step and evaluation
+     render, K2b, K4 once per rgb train step; the batch-0 eval energy falls;
+     the checkpoint has the reference npz schema; per-stage median ms/step,
+     the loop's ms/step against the single train step's (phase 8), wall per
+     tracked frame, the media split and peak memory; then a second tracker
+     resumed from the run state written after the sequential phase runs
+     the global phase;
+ 19. GT recovery: tools/validate.py's reduced schedule (16 frames at 256^2,
+     batch 8) must PASS its rule (rot < 0.1 rad, trans < 0.02);
+each phase group's seconds are printed as it ends; then one JSON line of
+the kernels, nvidia-smi's line, and the result line {"ok": true, "device":
+{...}} last.
 """
 
 from __future__ import annotations
@@ -102,6 +130,20 @@ TRAIN_STEPS_PER_BATCH = 50        # bench.py STEPS_PER_BATCH: frames/s = B / (50
 UV_RES = 2048                     # the UV-mask bake (generate_flame_uvmask's default)
 SEQ_FRAMES = 16                   # make_synthetic_sequence frames at 512^2
 MV_CAMS, MV_FRAMES = 16, 2        # generate_multiview cameras x frames at 512^2
+# dense vs flat configuration: the same kernels on the same inputs. The
+# atomics' order (K2b, K4, index_add_ in the vertex normals and autograd's
+# index backward) varies between runs: two runs of the flat configuration
+# differ by up to 6e-5 of a leaf's max|g| on the bench's scene, so the
+# gradients are held as the kernels are held against the plain path
+DENSE_GRAD_TOL = 1e-3
+# the tracker loop: full width (batch 16, 512^2, texture 2048, 300/100),
+# reduced depth
+LOOP_FRAMES = 32
+LOOP_STEPS = {"lmk_init_rigid": 50, "lmk_init_all": 50, "rgb_init_texture": 10,
+              "rgb_init_all": 10, "rgb_init_offset": 10,
+              "rgb_sequential_tracking": 10}
+LOOP_MEDIA_EVERY = 25
+RECOVERY_SCHEDULE_SCALE = 1.0     # tools/validate.py's reduced schedule
 
 
 def log(msg: str) -> None:
@@ -197,7 +239,8 @@ def check_k1(s, verts_clip):
         note=f"tri_id identical on {B * H * W} pixels")
 
 
-def check_k2(s, verts_clip, verts, tri_id):
+def check_k2(s, verts_clip, verts, tri_id, name="K2f fused_interp",
+             replaces="vhap_tpu/ops/interp_pallas.py:379"):
     """K2 against fused_interp_plain: 1e-5 * max(1, |ref|) on foreground."""
     from vhap_tpu_torch.ops.interp import fused_interp, fused_interp_plain
     from vhap_tpu_torch.ops.render import pack_face_tables
@@ -211,12 +254,12 @@ def check_k2(s, verts_clip, verts, tri_id):
     err = float(diff.max())
     rel = float((diff / ch_p.abs().clamp(min=1.0)).max())
     if not rel <= 1e-5:
-        raise RuntimeError(f"K2: error {rel} over 1e-5 * max(1, |ref|)")
+        raise RuntimeError(f"{name}: error {rel} over 1e-5 * max(1, |ref|)")
     n_fg = int(fg.sum())
     n_faces = int(torch.unique(tri_id[tri_id > 0]).numel())
     return ch_k, dict(
-        name="K2f fused_interp", source="vhap_tpu_torch/csrc/interp.cu",
-        replaces="vhap_tpu/ops/interp_pallas.py:379", max_abs_err=err,
+        name=name, source="vhap_tpu_torch/csrc/interp.cu",
+        replaces=replaces, max_abs_err=err,
         max_rel_err=rel,
         kernel=lambda: fused_interp(packed, tri_id, 0),
         plain=lambda: fused_interp_plain(packed, tri_id, 0),
@@ -300,7 +343,8 @@ def step_inputs(ts, params):
     return packed, nf, tri_id, flat[0].contiguous(), idx.contiguous(), wgt.contiguous()
 
 
-def check_k2b(packed, nf, tri_id):
+def check_k2b(packed, nf, tri_id, name="K2b fused_interp_bwd",
+              replaces="vhap_tpu/ops/interp_pallas.py:421"):
     """K2b against fused_interp_bwd_plain: 1e-4 * max|ref| per table row."""
     from vhap_tpu_torch.ops.interp import (N_FIXED_OUT, fused_interp_bwd,
                                            fused_interp_bwd_plain)
@@ -317,13 +361,13 @@ def check_k2b(packed, nf, tri_id):
     rel = float((row_err / row_ref).max())
     if not rel <= 1e-4:
         worst = int((row_err / row_ref).argmax())
-        raise RuntimeError(f"K2b: row {worst} error {rel} over 1e-4 * max|ref|")
+        raise RuntimeError(f"{name}: row {worst} error {rel} over 1e-4 * max|ref|")
     err = float(row_err.max())
     n_fg = int(fg.sum())
     n_faces = int(torch.unique(tri_id[tri_id > 0]).numel())
     return dict(
-        name="K2b fused_interp_bwd", source="vhap_tpu_torch/csrc/interp_bwd.cu",
-        replaces="vhap_tpu/ops/interp_pallas.py:421", max_abs_err=err,
+        name=name, source="vhap_tpu_torch/csrc/interp_bwd.cu",
+        replaces=replaces, max_abs_err=err,
         max_rel_err=rel,
         kernel=lambda: fused_interp_bwd(packed, tri_id, g, nf),
         plain=lambda: fused_interp_bwd_plain(packed, tri_id, g, nf),
@@ -403,7 +447,7 @@ def kernel_row(r, launches):
         "replaces": r["replaces"], "launches": launches,
         "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    for extra in ("max_rel_err", "max_abs_err_d_wgt"):
+    for extra in ("max_rel_err", "max_abs_err_d_wgt", "max_abs_err_vs_k4"):
         if extra in r:
             row[extra] = r[extra]
     return row
@@ -502,6 +546,7 @@ def train_timing(ts, t0):
         f"{B / (TRAIN_STEPS_PER_BATCH * ms_k * 1e-3):.4f} tracked frames/s, "
         f"peak memory {peak / 2**30:.3f} GiB; through the plain versions "
         f"{ms_p:.3f} ms (median of 3); run {time.perf_counter() - t0:.1f} s")
+    return ms_k
 
 
 def check_vis_path(vs, kernels):
@@ -785,12 +830,305 @@ def check_entry_points(vs):
         f"included); mean mask coverage {cover:.4f}")
 
 
+def dense_config_energies(ts):
+    """The eval and train energies of the existing slices with
+    render.bin_mode='dense' (the JAX package's K7 path)."""
+    import copy
+
+    from vhap_tpu_torch.tools.eval_slice import N_TIMESTEPS
+    from vhap_tpu_torch.tracker.energy import make_energy_fn
+    s = ts.eval
+    cfg = copy.deepcopy(s.cfg)
+    cfg.render.bin_mode = "dense"
+    eval_fn = make_energy_fn(s.head, cfg, s.get_albedo, s.image_size,
+                             N_TIMESTEPS, None, with_aux=True, device="cuda")
+    train_fn = make_energy_fn(s.head, cfg, s.get_albedo, s.image_size,
+                              N_TIMESTEPS, ts.stage, with_aux=False, device="cuda")
+    return eval_fn, train_fn
+
+
+def check_dense_path(ts, kernels):
+    """Phase 16: the dense configuration's eval and train steps through the
+    kernels, counts zeroed before and read after, against the flat
+    configuration on the same inputs and generator seed."""
+    from vhap_tpu_torch.tracker.optim import loss_and_grads
+    s = ts.eval
+    eval_dense, train_dense = dense_config_energies(ts)
+    for k in kernels.values():
+        k.launches = 0
+    Ed, (ld, ad) = run_step(eval_dense, s.params, s.batch)
+    eval_launches = {name: k.launches for name, k in kernels.items()}
+    for k in kernels.values():
+        k.launches = 0
+    Etd, ltd, gd = loss_and_grads(train_dense, s.params, ts.opt_leaves, s.batch,
+                                  ts.generator(8))
+    torch.cuda.synchronize()
+    train_launches = {name: k.launches for name, k in kernels.items()}
+    log(f"[dense] launches in one dense eval step: {eval_launches}; in one "
+        f"dense train step: {train_launches}")
+    for name, n in eval_launches.items():
+        want = 0 if name in ("K2b fused_interp_bwd", "K4 texel_scatter") else 1
+        if n != want:
+            raise RuntimeError(f"{name} launched {n} times in the dense eval "
+                               f"step, expected {want}")
+    for name, n in train_launches.items():
+        if n != 1:
+            raise RuntimeError(f"{name} launched {n} times in the dense train "
+                               f"step, expected 1")
+    # the flat configuration on the same inputs and generator seed, twice:
+    # its two runs give the noise floor of the atomics' order (K2b, K4 and
+    # the index_add_ of the vertex normals and of autograd's index backward)
+    flat = [(run_step(s.make_energy(True), s.params, s.batch),
+             loss_and_grads(ts.make_energy(True, True), s.params, ts.opt_leaves,
+                            s.batch, ts.generator(8))) for _ in range(2)]
+
+    def diffs(ev_a, tr_a, ev_b, tr_b):
+        (Ea, (_, aa)), (_, la, ga) = ev_a, tr_a
+        (Eb, (_, ab)), (_, lb, gb) = ev_b, tr_b
+        out = max(float((aa[k] - ab[k]).abs().max())
+                  for k in ("pred_rgb", "pred_alpha", "pred_lmk2d"))
+        E = abs(float(Ea) - float(Eb)) / abs(float(Eb))
+        term = max(abs(float(la[k]) - float(lb[k])) / max(abs(float(lb[k])), 1e-30)
+                   for k in lb)
+        grad = {k: float((ga[k] - gb[k]).abs().max()) / max(float(gb[k].abs().max()), 1e-30)
+                for k in gb}
+        return out, E, term, grad
+
+    out_d, E_d, term_d, grad_d = diffs((Ed, (ld, ad)), (Etd, ltd, gd), *flat[0])
+    out_f, E_f, term_f, grad_f = diffs(*flat[0], *flat[1])
+    overflow = float(ld["rast_overflow"]) + float(ltd["rast_overflow"])
+    log(f"[dense] dense vs flat (flat vs flat): eval outputs max abs diff "
+        f"{out_d:.3g} ({out_f:.3g}), eval E rel {E_d:.3g} ({E_f:.3g}); train "
+        f"worst term rel {term_d:.3g} ({term_f:.3g}); gradient diff / max|g|: "
+        + ", ".join(f"{k} {grad_d[k]:.3g} ({grad_f[k]:.3g})" for k in grad_d)
+        + f"; overflow {overflow}")
+    if not (out_d <= 1e-6 and E_d <= 1e-6 and term_d <= 1e-6 and overflow == 0.0):
+        raise RuntimeError("the dense configuration's outputs differ from the "
+                           "flat configuration's")
+    worst = max(grad_d.values())
+    if not worst <= DENSE_GRAD_TOL:
+        raise RuntimeError(f"dense vs flat gradients: {worst} of max|g| over "
+                           f"{DENSE_GRAD_TOL}")
+    return eval_launches, train_launches
+
+
+def check_k8(flat1, idx, wgt, tri_id, kernels):
+    """Phase 17: K8 (scatter_taps) on the train step's own taps, vals =
+    wgt * g for a seeded cotangent on the foreground: launched once with the
+    counts zeroed; within 1e-5 * max|ref| of a float64 index_add_ and of
+    K4's dflat on the same taps."""
+    from vhap_tpu_torch.ops.texture_fetch import (scatter_taps,
+                                                  scatter_vals_plain,
+                                                  weighted_fetch_bwd)
+    B, K, P = idx.shape
+    N = flat1.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    fg = (tri_id > 0).reshape(B, P, 1)
+    g = torch.randn((B, P, 3), generator=gen, device="cuda") * fg
+    vals = (wgt[:, :, None, :] * g.permute(0, 2, 1)[:, None]).contiguous()
+    for k in kernels.values():
+        k.launches = 0
+    dflat, ovf = scatter_taps(idx, vals, N)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    if launches["K8 scatter_taps"] != 1 or ovf != 0:
+        raise RuntimeError(f"K8: launches {launches}, overflow {ovf}")
+    ref64 = scatter_vals_plain(idx, vals.double(), N)
+    scale = float(ref64.abs().max())
+    err = float((dflat.double() - ref64).abs().max())
+    dflat_k4, _ = weighted_fetch_bwd(flat1, idx, wgt, g)
+    err_k4 = float((dflat - dflat_k4).abs().max())
+    err_p32 = float((scatter_vals_plain(idx, vals, N).double() - ref64).abs().max())
+    if not (err <= 1e-5 * scale and err_k4 <= 1e-5 * float(dflat_k4.abs().max())):
+        raise RuntimeError(f"K8: error {err} against float64 (max|ref| {scale}), "
+                           f"{err_k4} against K4's dflat")
+    live = (vals != 0).any(dim=2)
+    n_live = int(live.sum())
+    n_texels = int(torch.unique(idx[live]).numel())
+    rows = vals.permute(0, 1, 3, 2).reshape(-1, 3).contiguous()
+    idx_flat = idx.reshape(-1).long()
+    log(f"[K8] {B}x{K}x3x{P} vals ({vals.numel() * 4 / 1e6:.1f} MB), {n_live} "
+        f"live taps on {n_texels} texels; launches {launches}")
+    return launches, dict(
+        name="K8 scatter_taps", source="vhap_tpu_torch/csrc/texture_scatter.cu",
+        replaces="vhap_tpu/ops/texture_grad_pallas.py:313", max_abs_err=err,
+        max_abs_err_vs_k4=err_k4,
+        kernel=lambda: scatter_taps(idx, vals, N),
+        plain=lambda: scatter_vals_plain(idx, vals, N),
+        library=lambda: torch.zeros((N, 3), device="cuda").index_add_(
+            0, idx_flat, rows),
+        # every value read (a dead tap is known only by reading its zeros),
+        # the index of each live tap, the whole dflat written once
+        n_bytes=vals.numel() * 4 + n_live * 4 + N * 12,
+        n_flops=float(n_live * 3),
+        note=f"abs err {err:.3g} against float64 index_add_ (max|ref| "
+             f"{scale:.3g}; float32 index_add_ {err_p32:.3g}), {err_k4:.3g} "
+             f"against K4's dflat; {n_live} live taps on {n_texels} texels; "
+             f"library: float32 index_add_ of all {B * K * P} taps, rows "
+             f"permuted before the timed region")
+
+
+def tracker_config(root, out, frames_dir):
+    """The tracker loop's config: full width, reduced depth."""
+    from vhap_tpu_torch.config.base import BaseTrackingConfig
+    cfg = BaseTrackingConfig()
+    cfg.data.root_folder = root
+    cfg.data.sequence = frames_dir
+    cfg.data.background_color = None
+    cfg.model.add_teeth = False
+    cfg.model.use_static_offset = True
+    cfg.model.tex_extra = True
+    cfg.model.tex_resolution = 2048
+    cfg.exp.output_folder = out
+    cfg.batch_size = 16
+    cfg.device = "cuda"
+    for stage, n in LOOP_STEPS.items():
+        cfg.pipeline[stage].num_steps = n
+    cfg.pipeline.rgb_global_tracking.num_epochs = 1
+    cfg.log.interval_scalar = 50
+    cfg.log.interval_media = LOOP_MEDIA_EVERY
+    cfg.__post_init__()
+    return cfg
+
+
+def check_tracker_loop(kernels, single_step_ms):
+    """Phase 18: GlobalTracker at full width and reduced depth on a 32-frame
+    generated sequence, counts zeroed before and read after; then a second
+    tracker resumed from the run state written after the sequential phase."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from vhap_tpu_torch.tools.make_synthetic_sequence import generate
+    from vhap_tpu_torch.tracker.tracker import GlobalTracker
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        generate(root / "seq", n_frames=LOOP_FRAMES, size=512, n_shape=300,
+                 n_expr=100, device="cuda")
+        t_gen = time.perf_counter() - t
+        cfg = tracker_config(root, root / "out", "seq")
+        tr = GlobalTracker(cfg)
+        snapshot = root / "run_state_global.npz"
+        save_state = tr.save_run_state
+
+        def save_and_keep(phase, cursor, epoch=0):   # keep the mid-run state
+            save_state(phase, cursor, epoch)
+            if phase == "global":
+                shutil.copy(tr.out_dir / "run_state.npz", snapshot)
+        tr.save_run_state = save_and_keep
+
+        batch0 = tr._make_batch(list(range(cfg.batch_size)))
+        E0 = float(tr._eval_energy()(tr.params, batch0)[0])
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        tr.eval_calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        tr.optimize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: k.launches for name, k in kernels.items()}
+        rgb_steps = sum(n for st, n in tr.steps_by_stage.items()
+                        if st.startswith("rgb"))
+        evals = tr.eval_calls
+        E1 = float(tr._eval_energy()(tr.params, batch0)[0])
+        log(f"[loop] {LOOP_FRAMES} frames at 512^2 generated in {t_gen:.2f} s; "
+            f"steps by stage {dict(tr.steps_by_stage)}; {evals} evaluation "
+            f"renders; launches {launches}")
+        want = {"K1 visibility": rgb_steps + evals, "K2f fused_interp": rgb_steps + evals,
+                "K3 texel_fetch": rgb_steps + evals, "K2b fused_interp_bwd": rgb_steps,
+                "K4 texel_scatter": rgb_steps}
+        for name, n in want.items():
+            if launches[name] != n:
+                raise RuntimeError(f"{name} launched {launches[name]} times in the "
+                                   f"tracker loop, expected {n}")
+        if not (np.isfinite(E1) and E1 < E0):
+            raise RuntimeError(f"batch-0 eval energy did not fall: {E0} -> {E1}")
+        ckpt = sorted(tr.out_dir.glob("tracked_flame_params_*.npz"))[-1]
+        z = np.load(ckpt)
+        T, V = LOOP_FRAMES, tr.head.num_verts
+        schema = {"rotation": (T, 3), "translation": (T, 3), "neck_pose": (T, 3),
+                  "jaw_pose": (T, 3), "eyes_pose": (T, 6), "shape": (300,),
+                  "expr": (T, 100), "timestep_id": (T,), "n_processed_frames": (),
+                  "image_size": (2,), "focal_length": (1,),
+                  "tex_extra": (3, 2048, 2048), "lights": (9, 3),
+                  "static_offset": (1, V, 3)}
+        got = {k: z[k].shape for k in z.files}
+        if got != schema or not all(np.isfinite(z[k]).all() for k in z.files
+                                    if z[k].dtype.kind == "f"):
+            raise RuntimeError(f"checkpoint {ckpt.name}: {got}, expected {schema}")
+        stage_ms = {st: tr.step_timer.median_ms(st) for st in tr.steps_by_stage}
+        loop_ms = stage_ms["rgb_sequential_tracking"]
+        n_media = len(list(tr.out_dir.glob("*/image_grid/*")))
+        log(f"[loop] batch-0 eval E {E0:.6f} -> {E1:.6f}; checkpoint {ckpt.name} "
+            f"has the reference schema; median ms/step by stage: " + ", ".join(
+                f"{st} {ms:.3f}" for st, ms in stage_ms.items() if ms is not None))
+        log(f"[loop] rgb_sequential_tracking {loop_ms:.3f} ms/step in the loop vs "
+            f"{single_step_ms:.3f} ms for the single train step "
+            f"({loop_ms / single_step_ms - 1:+.1%}); wall {wall:.2f} s = "
+            f"{wall / LOOP_FRAMES * 1e3:.1f} ms per tracked frame; media "
+            f"{n_media} grids, media_write_s {tr.media_write_s:.3f}, "
+            f"media_blocked_s {tr.media_blocked_s:.3f}; peak memory "
+            f"{peak / 2**30:.3f} GiB")
+
+        # resume after the sequential phase: the global phase only
+        tr2 = GlobalTracker(cfg)
+        t = time.perf_counter()
+        tr2.optimize(resume_state_path=snapshot)
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t
+        with np.load(snapshot) as snap:
+            step0 = int(snap["global_step"])
+        if dict(tr2.steps_by_stage) != {"rgb_global_tracking": 2} or \
+                tr2.global_step != step0 + 2 or \
+                not sorted(tr2.out_dir.glob("tracked_flame_params_*.npz")):
+            raise RuntimeError(f"resumed run: steps {dict(tr2.steps_by_stage)}, "
+                               f"global step {tr2.global_step} from {step0}")
+        log(f"[loop] resumed from the run state after the sequential phase "
+            f"(global step {step0}): global phase done in {t_resume:.2f} s, "
+            f"global step {tr2.global_step}")
+
+
+def check_recovery():
+    """Phase 19: GT recovery, tools/validate.py's reduced schedule on the
+    card (16 frames at 256^2, batch 8); it must PASS its rule."""
+    import tempfile
+    from pathlib import Path
+
+    from vhap_tpu_torch.tools.validate import run
+    with tempfile.TemporaryDirectory() as tmp:
+        report, ok, _ = run(Path(tmp), frames=16, size=256, batch_size=8,
+                            schedule_scale=RECOVERY_SCHEDULE_SCALE, device="cuda")
+    note = ("" if RECOVERY_SCHEDULE_SCALE == 1.0 else
+            f" (schedule scaled by {RECOVERY_SCHEDULE_SCALE} to fit the time limit)")
+    log(f"[recovery] validate{note}: rot_err_rad {report['rot_err_rad']:.5f}, "
+        f"trans_err_m {report['trans_err_m']:.6f}, expr_err "
+        f"{report['expr_err']:.5f}; wall {report['wall_s']} s, "
+        f"{report['wall_s_per_frame']} s per frame; "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"GT recovery failed: {report}")
+
+
 def main() -> int:
     smi_line = card()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in full
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    laps = [t0]
+
+    def lap(phases: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] phases {phases}: {now - laps[-1]:.1f} s (run {now - t0:.1f} s)")
+        laps.append(now)
+
     build_kernels()
+    lap("1-2 (card, build)")
 
     from vhap_tpu_torch.ops import camera as cam
     from vhap_tpu_torch.ops.interp import FUSED_INTERP, FUSED_INTERP_BWD
@@ -857,6 +1195,7 @@ def main() -> int:
         raise RuntimeError(f"eval energy through the kernels disagrees with the "
                            f"plain path: E rel {rel}, photo rel {rel_photo}, lmk "
                            f"{float(logs['lmk'])} vs {float(logs_p['lmk'])}")
+    lap("3-4 (eval path, K1 K2f K3)")
     log(f"[energy] kernels vs plain: E_total rel {rel:.3g}, photo rel "
         f"{rel_photo:.3g}, lmk equal")
 
@@ -889,8 +1228,10 @@ def main() -> int:
                 for r in (r1, r2, r3, r4, r5)]
 
     # ---- 8. the train step through the plain versions; step timing ----
+    lap("5-7 (eval timing, train path, K2b K4)")
     check_train_plain(ts)
-    train_timing(ts, t0)
+    single_step_ms = train_timing(ts, t0)
+    lap("8 (train vs plain, timing)")
 
     # ---- 9. the vis path: render_rgba_vis + its gradient through the kernels ----
     from vhap_tpu_torch.ops.plane_gather import PLANE_GATHER, PLANE_GATHER_BWD
@@ -910,9 +1251,36 @@ def main() -> int:
 
     # ---- 13-14. the vis render and gradient vs the plain path; timing ----
     check_vis_plain(vs, cot)
+    lap("9-14 (vis path, K5 K6)")
 
     # ---- 15. the entry points ----
     check_entry_points(vs)
+    lap("15 (entry points)")
+
+    # ---- 16. the dense configuration (K7): eval and train steps ----
+    from vhap_tpu_torch.ops.texture_fetch import SCATTER_VALS
+    dense_eval, dense_train = check_dense_path(ts, train_kernels)
+    # its kernels' inputs: the render builds them as the flat
+    # configuration's (the port has one path), from the same parameters
+    _, r9 = check_k2(s, verts_clip, verts, tri_id, name="K7f fused_interp (dense)",
+                     replaces="vhap_tpu/ops/interp_pallas.py:259")
+    r10 = check_k2b(packed, nf, tri_t, name="K7b fused_interp_bwd (dense)",
+                    replaces="vhap_tpu/ops/interp_pallas.py:291")
+    rows_out += [kernel_row(r9, dense_eval["K2f fused_interp"]),
+                 kernel_row(r10, dense_train["K2b fused_interp_bwd"])]
+    lap("16 (dense configuration, K7)")
+
+    # ---- 17. K8: scatter_taps on the train step's taps ----
+    k8_launches, r11 = check_k8(flat1, idx, wgt, tri_t,
+                                {"K8 scatter_taps": SCATTER_VALS})
+    rows_out.append(kernel_row(r11, k8_launches["K8 scatter_taps"]))
+    lap("17 (K8)")
+
+    # ---- 18. the tracker loop; 19. GT recovery ----
+    check_tracker_loop(train_kernels, single_step_ms)
+    lap("18 (tracker loop + resume)")
+    check_recovery()
+    lap("19 (GT recovery)")
     log(f"[done] run {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows_out}), flush=True)

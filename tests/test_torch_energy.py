@@ -129,6 +129,9 @@ def test_energy_device_must_match_head(setup):
         t_energy(th, cfg, None, (H, W), T, None, device="meta")
 
 
+PORTED_KNOBS = {("bin_mode", "dense")}
+
+
 @pytest.mark.parametrize("field,value", [
     ("backend", "pallas"), ("plane_impl", "pallas"), ("interp_impl", "fused"),
     ("bin_mode", "dense"), ("layout", "tiled"), ("pad_to_tiles", False),
@@ -139,6 +142,13 @@ def test_energy_device_must_match_head(setup):
     ("texture_grad_impl", "xla"), ("texture_grad_impl", "xla_fetch"),
     ("texture_grad_impl", "pallas")])
 def test_tpu_only_render_knobs_rejected(field, value):
+    if (field, value) in PORTED_KNOBS:
+        # dense tile lists (the JAX package's K7 path) run the port's one
+        # fused path since slice 4: accepted, before and after construction
+        cfg = RenderConfig(**{field: value})
+        setattr(cfg, field, value)
+        cfg.check_portable()
+        return
     with pytest.raises(ValueError, match="TPU-only"):
         RenderConfig(**{field: value})
     cfg = RenderConfig()
@@ -157,3 +167,6 @@ def test_render_defaults_and_portable_values_accepted():
                  plane_max_list=0, disturb_impl="auto")
     # the sampling disturbance is ported: "auto" resolves to it
     RenderConfig(disturb_impl="sample").check_portable()
+    # every bin_mode selects the port's one fused path (slice 4)
+    for bin_mode in ("flat", "dense"):
+        RenderConfig(bin_mode=bin_mode).check_portable()

@@ -120,3 +120,22 @@ def test_surgery_raises_until_ported(option):
     kw = {"add_teeth": False, option: True}
     with pytest.raises(NotImplementedError, match="surgery"):
         THead.build(n_shape=NS, n_expr=NE, assets=a, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("tex_size", [512, 64])
+def test_pca_texture_matches(tex_size):
+    """FlameTexPCA (the tracker's albedo when tex_painted=False): mean +
+    basis @ code, BGR -> RGB, / 255, clamped, resized as JAX resizes."""
+    from vhap_tpu.model.flame import FlameTexPCA as JPCA
+    from vhap_tpu_torch.model.flame import FlameTexPCA as TPCA
+    rng = np.random.default_rng(tex_size)
+    # a ramp past [0, 255] across the map: clamped at both ends after any resize
+    ramp = np.linspace(-60.0, 315.0, 512, dtype=np.float32)
+    mean = np.broadcast_to(ramp[None, :, None], (512, 512, 3)).reshape(-1).copy()
+    basis = rng.normal(0, 10, (512 * 512 * 3, 6)).astype(np.float32)
+    code = rng.normal(size=(2, 4)).astype(np.float32)
+    a = np.asarray(JPCA(mean, basis, 4, tex_size)(jnp.asarray(code)))
+    b = TPCA(mean, basis, 4, tex_size, device="cpu")(torch.as_tensor(code)).numpy()
+    assert a.shape == b.shape == (2, 3, tex_size, tex_size)
+    assert (a == 1.0).any() and (a == 0.0).any()   # the clamp is exercised
+    np.testing.assert_allclose(b, a, rtol=0, atol=2e-6)

@@ -298,3 +298,73 @@ def test_render_rgba_vis_kernels_match_plain(dev):
         assert float((a["rgba"][..., 3] > 0).float().mean()) > 0.05
         for k in a:
             assert float((a[k] - b[k]).abs().max()) <= 1e-5, k
+
+
+@pytest.mark.parametrize("n_texels,C,seed", [(97, 3, 0), (40000, 3, 1), (5000, 5, 2)])
+def test_scatter_taps_kernel_matches_float64(dev, n_texels, C, seed):
+    """K8: the value scatter within 1e-5 * max|ref| of a float64 index_add_
+    (97 texels: every texel takes hundreds of colliding taps), with dead
+    taps (all C values 0) and zero channels of live taps."""
+    from vhap_tpu_torch.ops.texture_fetch import (SCATTER_VALS, scatter_taps,
+                                                  scatter_vals_plain)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, K, P = 2, 8, 4096
+    idx = torch.randint(0, n_texels, (B, K, P), device=dev, generator=g,
+                        dtype=torch.int32)
+    vals = torch.randn(B, K, C, P, device=dev, generator=g)
+    vals[:, :, :, ::3] = 0.0
+    vals[:, :, 1, ::5] = 0.0
+    n0 = SCATTER_VALS.launches
+    got, ovf = scatter_taps(idx, vals, n_texels)
+    ref = scatter_vals_plain(idx, vals.double(), n_texels)
+    torch.cuda.synchronize()
+    assert SCATTER_VALS.launches == n0 + 1 and ovf == 0
+    assert got.shape == (n_texels, C) and got.dtype == torch.float32
+    assert float((got.double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    with pytest.raises(ValueError, match="int32"):
+        scatter_taps(idx.long(), vals, n_texels)
+
+
+def test_dense_bin_mode_runs_the_flat_kernels(dev):
+    """render.bin_mode='dense' (the JAX package's K7 path) runs K1, K2f and
+    K2b once a train step and equals the flat configuration."""
+    import copy
+
+    from vhap_tpu_torch.ops.interp import FUSED_INTERP, FUSED_INTERP_BWD
+    from vhap_tpu_torch.tools.train_slice import build_train_slice
+    from vhap_tpu_torch.tracker.energy import make_energy_fn
+    from vhap_tpu_torch.tracker.optim import loss_and_grads
+    ts = build_train_slice(device=dev, batch_size=2, image_size=(64, 128),
+                           tex_res=64, n_shape=20, n_expr=10)
+    s = ts.eval
+    cfg = copy.deepcopy(s.cfg)
+    cfg.render.bin_mode = "dense"
+    cfg.render.disturb_rate_fg = cfg.render.disturb_rate_bg = None
+    dense = make_energy_fn(s.head, cfg, s.get_albedo, s.image_size, 64, ts.stage,
+                           with_aux=False, device=dev)
+    n0 = (FUSED_INTERP.launches, FUSED_INTERP_BWD.launches)
+    Ed, ld, gd = loss_and_grads(dense, s.params, ts.opt_leaves, s.batch,
+                                ts.generator(0))
+    torch.cuda.synchronize()
+    assert (FUSED_INTERP.launches, FUSED_INTERP_BWD.launches) == (n0[0] + 1, n0[1] + 1)
+    Ef, lf, gf = loss_and_grads(ts.make_energy(True, False), s.params,
+                                ts.opt_leaves, s.batch, ts.generator(0))
+    assert float(ld["rast_overflow"]) == 0.0
+    assert abs(float(Ed) - float(Ef)) <= 1e-6 * abs(float(Ef))
+    for k in gf:
+        assert float((gd[k] - gf[k]).abs().max()) <= 1e-5 * float(gf[k].abs().max()), k
+
+
+def test_tracker_runs_on_the_card(dev, tmp_path):
+    """A short photometric tracker run on the card: every rgb train step
+    launches K2b once, and the fit descends."""
+    from vhap_tpu_torch.ops.interp import FUSED_INTERP_BWD
+    from vhap_tpu_torch.tools.validate import run
+    n0 = FUSED_INTERP_BWD.launches
+    report, _, tr = run(tmp_path, frames=4, size=64, batch_size=2,
+                        schedule_scale=0.05)
+    torch.cuda.synchronize()
+    rgb_steps = sum(n for st, n in tr.steps_by_stage.items() if st.startswith("rgb"))
+    assert rgb_steps > 0 and FUSED_INTERP_BWD.launches == n0 + rgb_steps
+    assert all(np.isfinite(v) for v in report.values() if isinstance(v, float))
+    assert tr.params["shape"].is_cuda

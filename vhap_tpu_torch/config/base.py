@@ -1,18 +1,19 @@
-"""Tracking configuration read by the port's evaluation and training steps.
+"""Tracking configuration read by the port's steps and its tracker loop.
 
 Same field names and defaults as vhap_tpu/config/base.py (and through it
-the reference's vhap/config/base.py), so recipes carry over unchanged. The
-JAX package's TPU-only knobs stay in the dataclasses for that reason, but
-the port accepts each only at its default: any other value selects a TPU
-layout or workaround the port does not carry (ROADMAP.md "Not to port"),
-and `RenderConfig.check_portable` raises on it.
-
-Logging and experiment settings are read by the tracker loop; they come
-with that slice.
+the reference's vhap/config/base.py), so recipes and command lines carry
+over unchanged; CLI parsing is in vhap_tpu_torch.config.cli. Two fields
+differ by design: `data._target` names the port's dataset class, and
+`device` (None = the CUDA card) is the torch device the tracker computes
+on. The JAX package's TPU-only render knobs stay in the dataclasses, but
+the port accepts each only at the values its one path serves: any other
+value selects a TPU layout or workaround the port does not carry (ROADMAP.md
+"Not to port"), and `RenderConfig.check_portable` raises on it.
 """
 
 from __future__ import annotations
 
+import importlib
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Literal, Optional, Tuple
@@ -20,6 +21,12 @@ from typing import Literal, Optional, Tuple
 from vhap_tpu_torch.util.log import get_logger
 
 logger = get_logger(__name__)
+
+
+def import_module(module_name: str):
+    """'pkg.mod.Class' -> Class (vhap/config/base.py:19-22)."""
+    module_name, class_name = module_name.rsplit(".", 1)
+    return getattr(importlib.import_module(module_name), class_name)
 
 
 class Config:
@@ -33,6 +40,7 @@ class Config:
 class DataConfig(Config):
     root_folder: Path = Path(".")
     sequence: str = ""
+    _target: str = "vhap_tpu_torch.data.video_dataset.VideoDataset"
     division: Optional[str] = None
     subset: Optional[str] = None
     calibrated: bool = False
@@ -70,16 +78,21 @@ class ModelConfig(Config):
     """Directory holding the FLAME asset files."""
 
 
-# TPU-only render knobs and the values of each the port accepts: its
-# default. The port has one implementation of each stage (exact visibility
-# with no bin budget, the fused per-pixel interpolation, the image layout at
-# any H x W, a float32 color chain, exact trilinear texel fetches and the
-# sampling cluster disturbance) and reads none of these fields but
-# disturb_impl, whose "auto" resolves to "sample" as in the JAX package.
+# TPU-only render knobs and the values of each the port accepts. The port
+# has one implementation of each stage (exact visibility with no bin
+# budget, the fused per-pixel interpolation, the image layout at any H x W,
+# a float32 color chain, exact trilinear texel fetches and the sampling
+# cluster disturbance) and reads none of these fields but disturb_impl,
+# whose "auto" resolves to "sample" as in the JAX package. Every bin_mode
+# selects that one path: the JAX package's flat bins (its K2 kernel) and
+# dense per-tile lists (its K7 kernel) are two TPU layouts of the fused
+# interpolation, which the port computes per pixel from the winning face.
+# A list cap (max_faces_per_tile, plane_max_list) would drop faces; the port
+# has no lists to cap, so both stay at 0.
 _PORTABLE_ONLY = {
     "plane_impl": ("auto",),
     "interp_impl": ("auto",),
-    "bin_mode": ("auto",),
+    "bin_mode": ("auto", "flat", "dense"),
     "pad_to_tiles": (True,),
     "max_faces_per_tile": (0,),
     "plane_max_list": (0,),
@@ -186,6 +199,29 @@ class LossWeightConfig(Config):
 
 
 @dataclass
+class LogConfig(Config):
+    interval_scalar: Optional[int] = 100
+    interval_media: Optional[int] = 500
+    image_format: Literal["jpg", "png"] = "jpg"
+    view_indices: Tuple[int, ...] = ()
+    max_num_views: int = 3
+    stack_views_in_rows: bool = True
+
+
+@dataclass
+class ExperimentConfig(Config):
+    output_folder: Path = Path("output/track")
+    reuse_landmarks: bool = True
+    keyframes: Tuple[int, ...] = ()
+    photometric: bool = True
+    resume_run_state: Optional[Path] = None
+    """Resume mid-run from a run_state.npz of a previous (interrupted) run."""
+    num_devices: int = 0
+    """Devices to shard the batch axis over (0 = all). The port tracks on
+    one device; a value above 1 raises (multi-GPU is not ported)."""
+
+
+@dataclass
 class StageConfig(Config):
     disable_jawline_landmarks: bool = False
 
@@ -287,6 +323,8 @@ class BaseTrackingConfig(Config):
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
+    log: LogConfig = field(default_factory=LogConfig)
+    exp: ExperimentConfig = field(default_factory=ExperimentConfig)
     lr: LearningRateConfig = field(default_factory=LearningRateConfig)
     w: LossWeightConfig = field(default_factory=LossWeightConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
@@ -294,6 +332,9 @@ class BaseTrackingConfig(Config):
     begin_stage: Optional[str] = None
     begin_timestep: int = 0
     batch_size: Optional[int] = 16
+    async_func: bool = True
+    device: Optional[str] = None
+    """torch device of the tracker: None = the CUDA card; "cpu" on request."""
 
     def get_occluded(self):
         occluded_table = {}

@@ -1,5 +1,6 @@
 // K4: texel-gradient scatter (the backward of the exact weighted fetch),
-// with the uv-path weight gradient riding the same launch.
+// with the uv-path weight gradient riding the same launch; and K8, the
+// scatter of precomputed tap values (end of file).
 //
 // Replaces the TPU kernel _tile_kernel_wg
 // (vhap_tpu/ops/texture_grad_pallas.py:338, launched by scatter_taps_wg at
@@ -63,6 +64,35 @@ __global__ void weighted_fetch_bwd(const float* __restrict__ flat,   // (N, 3)
   }
 }
 
+// K8: dflat[idx[b, k, p], c] += vals[b, k, c, p], one thread per tap
+// (b, k, p). Replaces the TPU kernel _tile_kernel
+// (vhap_tpu/ops/texture_grad_pallas.py:313, launched by scatter_taps :271),
+// which bins taps per texel tile and adds with one-hot bf16 hi/lo matmuls.
+// K4 cannot serve: it forms wgt * g in the kernel from a per-tap weight and
+// a per-pixel cotangent, and vals need not factor that way. A tap whose C
+// values are all 0 reads nothing more and writes nothing; a live tap reads
+// its index and issues one float32 atomicAdd per channel. Threads run along
+// p, so a warp reads each channel row of vals coalesced.
+__global__ void scatter_vals(const int* __restrict__ idx,     // (B, K, P)
+                             const float* __restrict__ vals,  // (B, K, C, P)
+                             int C, int P,
+                             float* __restrict__ dflat,       // (N, C)
+                             long long n) {
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n) return;
+  const long long bk = q / P;                 // b * K + k
+  const long long p = q - bk * P;
+  const float* v = vals + bk * C * P + p;
+  bool live = false;
+  for (int c = 0; c < C; ++c) live |= v[(long long)c * P] != 0.0f;
+  if (!live) return;
+  float* row = dflat + (long long)idx[q] * C;
+  for (int c = 0; c < C; ++c) {
+    const float x = v[(long long)c * P];
+    if (x != 0.0f) atomicAdd(row + c, x);
+  }
+}
+
 }  // namespace
 
 // flat (N, 3) f32; idx (B, K, P) i32 in [0, N); wgt (B, K, P) f32; g
@@ -76,5 +106,18 @@ extern "C" int vhap_weighted_fetch_bwd(const float* flat, const int* idx,
   const int threads = 256;
   weighted_fetch_bwd<<<(unsigned)((n + threads - 1) / threads), threads, 0,
                        stream>>>(flat, idx, wgt, g, K, P, dflat, d_wgt, n);
+  return cudaGetLastError();
+}
+
+// idx (B, K, P) i32 in [0, N); vals (B, K, C, P) f32; dflat (N, C) f32
+// zeroed by the caller.
+extern "C" int vhap_scatter_vals(const int* idx, const float* vals, int B,
+                                 int K, int C, int P, float* dflat,
+                                 cudaStream_t stream) {
+  const long long n = (long long)B * K * P;
+  if (n == 0) return cudaSuccess;
+  const int threads = 256;
+  scatter_vals<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                 stream>>>(idx, vals, C, P, dflat, n);
   return cudaGetLastError();
 }

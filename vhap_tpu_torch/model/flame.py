@@ -235,3 +235,31 @@ class FlameTexPainted(nn.Module):
 
     def forward(self) -> torch.Tensor:
         return self.tex_painted
+
+
+class FlameTexPCA(nn.Module):
+    """PCA texture space: mean + basis @ code, BGR->RGB, /255, clamp
+    (flame.py:665-687; vhap_tpu/model/flame.py FlameTexPCA)."""
+
+    def __init__(self, tex_mean: np.ndarray, tex_basis: np.ndarray,
+                 n_tex: int, tex_size: int = 512, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.register_buffer("mean", torch.as_tensor(
+            np.asarray(tex_mean, np.float32).reshape(1, -1), device=device))
+        self.register_buffer("basis", torch.as_tensor(
+            np.asarray(tex_basis, np.float32)[:, :n_tex], device=device))
+        self.tex_size = tex_size
+
+    def forward(self, texcode: torch.Tensor) -> torch.Tensor:
+        """(B, n_tex) -> (B, 3, T, T) in [0, 1]."""
+        tex = self.mean + texcode @ self.basis.T
+        B = texcode.shape[0]
+        tex = tex.reshape(B, 512, 512, 3).permute(0, 3, 1, 2)
+        if self.tex_size != 512:
+            # jax.image.resize's bilinear (see FlameTexPainted)
+            tex = F.interpolate(tex, size=(self.tex_size, self.tex_size),
+                                mode="bilinear", align_corners=False,
+                                antialias=True)
+        tex = torch.flip(tex, dims=[1])     # BGR -> RGB (flame.py:685)
+        return torch.clamp(tex / 255.0, 0.0, 1.0)

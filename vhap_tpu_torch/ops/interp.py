@@ -10,6 +10,17 @@ CUDA tensors, and its backward the kernel K2b (csrc/interp_bwd.cu);
 `fused_interp_plain` is their plain PyTorch version (autograd gives the
 backward), and `fused_interp_bwd_plain` the plain version of K2b alone.
 
+The JAX package computes this function with two pairs of TPU kernels: K2
+(`fused_interp_flat`, on the globally budgeted flat bins) and K7
+(`fused_interp_tiled`, interp_pallas.py:259 / :291, on dense per-tile
+(B, T, K) face lists, selected by `render.bin_mode='dense'`). Both resolve
+each pixel's face row with a one-hot bf16 hi/lo matmul over the tile's list,
+a TPU shape. On Hopper a per-pixel gather by `tri_id` computes the same
+function, so K7 is ported as a second caller of K2f and K2b, not as a
+kernel of its own (as K5 reaches K1's kernel): with `bin_mode='dense'` the
+render runs exactly this path, and its overflow is 0, as the JAX kernels
+report when no list is capped.
+
 Input face table (B, C, F), C = 36 + nf:
   [0:12)  PLANE_KEYS: a0x a0y a0c a1x a1y a1c iw0 iw1 iw2 z0 z1 z2
   [12:21) corner normals n0.xyz n1.xyz n2.xyz (corner-major)

@@ -11,8 +11,18 @@ the texel gradient `dflat[idx] += wgt * g` with the uv-path weight
 gradient `d_wgt = sum_c flat1[idx] * g` in the same launch.
 `weighted_fetch_plain` is their plain PyTorch version (autograd gives the
 backward); `scatter_taps_plain` and `tap_weight_grad_plain` are the plain
-versions of K4's two outputs. All run in float32 (the TPU's bf16 fetch is
-a TPU speed trade and is not ported).
+versions of K4's two outputs.
+
+`scatter_taps` is K8, the counterpart of vhap_tpu's `scatter_taps`
+(texture_grad_pallas.py:271): the sum of precomputed tap values into the
+flat texel buffer, `dflat[idx[b, k, p], c] += vals[b, k, c, p]`, through
+the CUDA kernel `scatter_vals` (csrc/texture_scatter.cu) for CUDA tensors
+and `scatter_vals_plain` (float32 `index_add_`) for CPU tensors. The TPU
+function's `level_offsets`, `plan`, `npix` and `precision` arguments only
+shape its tile binning and bf16 split, so the port does not take them.
+
+All run in float32 (the TPU's bf16 fetch is a TPU speed trade and is not
+ported).
 """
 
 from __future__ import annotations
@@ -31,14 +41,23 @@ def weighted_fetch_plain(flat1: torch.Tensor, idx: torch.Tensor,
     return torch.einsum("bkpc,bkp->bpc", texels, wgt)
 
 
+def scatter_vals_plain(idx: torch.Tensor, vals: torch.Tensor,
+                       n_texels: int) -> torch.Tensor:
+    """Plain version of K8: idx (B, K, P); vals (B, K, C, P) -> dflat
+    (n_texels, C) with dflat[idx[b, k, p], c] += vals[b, k, c, p], in
+    vals' dtype."""
+    C = vals.shape[2]
+    rows = vals.permute(0, 1, 3, 2).reshape(-1, C)              # (B*K*P, C)
+    return torch.zeros((n_texels, C), dtype=vals.dtype,
+                       device=vals.device).index_add_(0, idx.reshape(-1).long(), rows)
+
+
 def scatter_taps_plain(idx: torch.Tensor, wgt: torch.Tensor, g: torch.Tensor,
                        n_texels: int) -> torch.Tensor:
     """Plain version of K4's texel gradient: idx, wgt (B, K, P); g (B, P, C)
     -> dflat (n_texels, C) with dflat[idx[b, k, p]] += wgt[b, k, p] * g[b, p]."""
-    C = g.shape[-1]
-    vals = wgt[..., None] * g[:, None]                          # (B, K, P, C)
-    return torch.zeros((n_texels, C), dtype=g.dtype, device=g.device).index_add_(
-        0, idx.reshape(-1).long(), vals.reshape(-1, C))
+    return scatter_vals_plain(idx, wgt[:, :, None, :] * g.transpose(1, 2)[:, None],
+                              n_texels)
 
 
 def tap_weight_grad_plain(flat1: torch.Tensor, idx: torch.Tensor,
@@ -54,6 +73,8 @@ WEIGHTED_FETCH = Kernel("weighted_fetch", "vhap_weighted_fetch",
 WEIGHTED_FETCH_BWD = Kernel("weighted_fetch_bwd", "vhap_weighted_fetch_bwd",
                             [c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int,
                              c_ptr, c_ptr])
+SCATTER_VALS = Kernel("scatter_vals", "vhap_scatter_vals",
+                      [c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_ptr])
 
 
 def _check_inputs(flat1, idx, wgt):
@@ -125,3 +146,25 @@ def weighted_fetch(flat1: torch.Tensor, idx: torch.Tensor,
     if flat1.device.type == "cpu":
         return weighted_fetch_plain(flat1, idx, wgt)
     return _WeightedFetch.apply(flat1, idx, wgt)
+
+
+def scatter_taps(idx: torch.Tensor, vals: torch.Tensor, n_texels: int
+                 ) -> Tuple[torch.Tensor, int]:
+    """Sum tap values into a flat texel buffer: idx (B, K, P) int32 in
+    [0, n_texels); vals (B, K, C, P) float32 -> (dflat (n_texels, C),
+    overflow = 0). The port has no tile lists to overflow.
+
+    CUDA tensors go through kernel K8 (`scatter_vals`); CPU tensors
+    through `scatter_vals_plain`.
+    """
+    if vals.device.type == "cpu":
+        return scatter_vals_plain(idx, vals, n_texels), 0
+    check_cuda_tensor("idx", idx, torch.int32, 3)
+    check_cuda_tensor("vals", vals, torch.float32, 4)
+    B, K, C, P = vals.shape
+    if tuple(idx.shape) != (B, K, P):
+        raise ValueError(f"idx {tuple(idx.shape)} does not match vals "
+                         f"{tuple(vals.shape)} (expected {(B, K, P)})")
+    dflat = torch.zeros((n_texels, C), dtype=torch.float32, device=vals.device)
+    SCATTER_VALS(idx.data_ptr(), vals.data_ptr(), B, K, C, P, dflat.data_ptr())
+    return dflat, 0
