@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one CUDA card and check it: the evaluation and
 train steps, the visualization render, the entry points, the dense-list
-configuration, the value scatter and the tracker loop.
+configuration, the value scatter, adversarial scenes for the visibility and
+fused-interp backward kernels, and the tracker loop.
 
     python3 chip_smoke.py
 
@@ -34,16 +35,22 @@ Phases (any failure ends the run with a non-zero exit):
      and K4 must each have launched once; E and every gradient finite,
      every optimizable leaf changed, every frozen leaf bit-identical, the
      stage's regularizer terms in the log;
-  7. K2b (fused interp backward) and K4 (texel scatter) against their
-     plain versions on the train step's own face table, tri_id and taps,
-     with a seeded random cotangent masked to the foreground (K2b: 1e-4 *
-     max|ref| per table row; K4: dflat 1e-5 * max|ref|, d_wgt 1e-5
-     absolute), timed and bounded as in 4;
+  7. K2b (fused interp backward) against its plain version at the train
+     step's own launch (its saved (B, F, C) table, tri_id and per-output
+     cotangents, captured in phase 6; the timed call) and for a seeded
+     random cotangent on every output group (1e-4 * max|ref| per table
+     row); K4 (texel scatter) on the step's taps with a seeded random
+     cotangent masked to the foreground (dflat 1e-5 * max|ref|, d_wgt 1e-5
+     absolute); timed and bounded as in 4; K1's and K2b's timed calls split
+     by device op (torch.profiler);
   8. the train step through the plain versions, disturbance off, against
      the kernels' with the disturbance off: E_total and each log term to
      1e-4 relative, each optimizable leaf's gradient to 1e-3 * max|g|;
      then the train step's time (disturbance on), tracked frames/s =
      16 / (50 * step) (bench.py:186), peak memory and the plain step's time;
+     the zero fills and adds one train step makes on per-pixel tensors
+     (torch.profiler with shapes), those on the (B, 20 + nf, H, W) channel
+     buffer beside the previous design's (a constant);
   9. the vis path (tools/vis_slice.py, the eval step's scene): launch
      counts set to 0, one `render_rgba_vis` and one gradient of the
      nvdiffrast-style chain (rasterize -> interpolate -> texture_sample ->
@@ -75,12 +82,19 @@ Phases (any failure ends the run with a non-zero exit):
      the same inputs and generator seed, outputs within 1e-6 absolute,
      energy and terms 1e-6 relative, overflow 0, gradients within
      DENSE_GRAD_TOL * max|g|, beside two flat runs' own differences (the
-     atomics' order); K2f and K2b timed at these inputs are the K7 rows;
+     atomics' order); K2f timed at these inputs and K2b at the dense train
+     step's own launch are the K7 rows;
  17. K8 (scatter_taps) on the train step's own taps with vals = wgt * g
      (16 x 8 x 3 x 262,144, ~400 MB), counts zeroed: one launch; within
      1e-5 * max|ref| of a float64 index_add_ and of K4's dflat on the same
      taps; timed and bounded as in 4, float32 index_add_ as the library call;
- 18. the tracker loop: GlobalTracker at full width (batch 16, 512^2,
+ 18. K1 and K2b on the adversarial scenes of tools/raster_scenes.py
+     (equal-z ties and -0.0, a face over most of the image, near-plane
+     straddlers, a tile of 256 winning faces over 1256 candidates, ragged
+     sizes), each at its own size and at 250 x 333: tri_id identical to
+     visibility_plain; K2b within 1e-4 * max|ref| per row of its plain
+     version for nf = 0 and 2 with some output groups' cotangent None;
+ 19. the tracker loop: GlobalTracker at full width (batch 16, 512^2,
      texture 2048, 300/100, SH, static offset, residual texture,
      disturbance on) and reduced depth (LOOP_STEPS, one global epoch) on a
      32-frame sequence from the port's generator, media every
@@ -92,15 +106,18 @@ Phases (any failure ends the run with a non-zero exit):
      tracked frame, the media split and peak memory; then a second tracker
      resumed from the run state written after the sequential phase runs
      the global phase;
- 19. GT recovery: tools/validate.py's reduced schedule (16 frames at 256^2,
+ 20. GT recovery: tools/validate.py's reduced schedule (16 frames at 256^2,
      batch 8) must PASS its rule (rot < 0.1 rad, trans < 0.02);
-each phase group's seconds are printed as it ends; then one JSON line of
-the kernels, nvidia-smi's line, and the result line {"ok": true, "device":
-{...}} last.
+each phase group's seconds are printed as it ends, and each kernel's time
+beside the previous kernels' time, a constant (PRIOR_MS); then one JSON
+line of the kernels, nvidia-smi's line, and the result line {"ok": true,
+"device": {...}} last.
 """
 
 from __future__ import annotations
 
+import ast
+import contextlib
 import json
 import statistics
 import subprocess
@@ -126,6 +143,22 @@ K1_ROW_FIELDS_READ = 17       # setup row fields visibility.cu reads (A0X..VALID
 K2B_FLOPS_PER_FG_PIXEL = 320
 K4_FLOPS_PER_LIVE_PIXEL_TAP = 5   # d_wgt: 3 mul + 2 add, every tap of a live pixel
 K4_FLOPS_PER_LIVE_TAP = 6         # dflat: 3 channels x (mul + atomic add)
+# each kernel's time measured by this script on the previous kernels (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md), printed in the log beside this run's and
+# never in the kernels line. K1/K5 were
+# one warp per face into a 64-bit key buffer and K2b/K7b one thread per
+# pixel with per-warp pre-sums; the other kernels are unchanged and show
+# the call-to-call drift
+PRIOR_MS = {"K1 visibility": 0.0607, "K2f fused_interp": 0.1598,
+          "K3 texel_fetch": 0.1042, "K2b fused_interp_bwd": 0.2386,
+          "K4 texel_scatter": 0.1307, "K5 visibility": 0.0596,
+          "K6f plane_gather": 0.0835, "K6b plane_gather_bwd": 0.1320,
+          "K7f fused_interp (dense)": 0.1598,
+          "K7b fused_interp_bwd (dense)": 0.2391, "K8 scatter_taps": 0.2817}
+# the train step's zero fills and adds on the (16, 22, 512, 512) channel
+# buffer when the render sliced one channel tensor (calls, device ms;
+# tools/profile_eval.py, same card)
+PRIOR_CHANNEL_BUFFER_OPS = {"aten::zero_": (9, 1.0062), "aten::add_": (8, 2.8595)}
 TRAIN_STEPS_PER_BATCH = 50        # bench.py STEPS_PER_BATCH: frames/s = B / (50 step)
 UV_RES = 2048                     # the UV-mask bake (generate_flame_uvmask's default)
 SEQ_FRAMES = 16                   # make_synthetic_sequence frames at 512^2
@@ -235,19 +268,20 @@ def check_k1(s, verts_clip):
         # the id map written
         n_bytes=(n_valid * K1_ROW_FIELDS_READ + (n_rows - n_valid)) * 4
                 + B * H * W * 4,
-        n_flops=n_cand * K1_FLOPS_PER_CANDIDATE,
-        note=f"tri_id identical on {B * H * W} pixels")
+        n_flops=n_cand * K1_FLOPS_PER_CANDIDATE, split=True,
+        note=f"tri_id identical on {B * H * W} pixels; {tile_bins(rows, H, W)}")
 
 
 def check_k2(s, verts_clip, verts, tri_id, name="K2f fused_interp",
              replaces="vhap_tpu/ops/interp_pallas.py:379"):
     """K2 against fused_interp_plain: 1e-5 * max(1, |ref|) on foreground."""
-    from vhap_tpu_torch.ops.interp import fused_interp, fused_interp_plain
+    from vhap_tpu_torch.ops.interp import (fused_interp, fused_interp_plain,
+                                           join_channels)
     from vhap_tpu_torch.ops.render import pack_face_tables
     from vhap_tpu_torch.tracker.energy import render_verts_uv
     packed = pack_face_tables(verts_clip, verts, s.head.faces,
                               render_verts_uv(s.head, "cuda"), s.head.textures_idx)
-    ch_k, _ = fused_interp(packed, tri_id, 0)
+    ch_k = join_channels(fused_interp(packed, tri_id, 0)[0])
     ch_p, _ = fused_interp_plain(packed, tri_id, 0)
     fg = (tri_id > 0)[:, None]
     diff = (ch_k - ch_p).abs() * fg
@@ -302,10 +336,8 @@ def check_k3(albedo_map, chans, tri_id):
 
 
 def step_inputs(ts, params):
-    """The train step's own kernel inputs, rebuilt as render_rgba builds
-    them: the packed face table (with the two flag rows and the
-    boundary-detached AA planes), tri_id, and the texture taps."""
-    from vhap_tpu_torch.ops import camera as cam
+    """The train step's texel-tap inputs, rebuilt as render_rgba builds
+    them: tri_id, the pyramid's level-0 rows and the texture taps."""
     from vhap_tpu_torch.ops.interp import fused_interp
     from vhap_tpu_torch.ops.render import (RenderSettings, face_tables,
                                            rasterize_mesh)
@@ -334,52 +366,74 @@ def step_inputs(ts, params):
             head.masks.vertex_mask(stage_cfg.align_boundary_except),
             head.masks.fid2cid)
         tri_id = rast["tri_id"]
-        chans, _ = fused_interp(packed, tri_id, nf)
+        ch, _ = fused_interp(packed, tri_id, nf)
         albedo = s.get_albedo(params).permute(0, 2, 3, 1)
         flat, offsets, sizes = build_mip_pyramid(albedo)
         idx, wgt = trilinear_taps(albedo.shape[1:3], offsets, sizes,
-                                  chans[:, 1:3].permute(0, 2, 3, 1),
-                                  chans[:, 3:7].permute(0, 2, 3, 1), tri_id > 0)
-    return packed, nf, tri_id, flat[0].contiguous(), idx.contiguous(), wgt.contiguous()
+                                  ch.texc.permute(0, 2, 3, 1),
+                                  ch.texd.permute(0, 2, 3, 1), tri_id > 0)
+    return tri_id, flat[0].contiguous(), idx.contiguous(), wgt.contiguous()
 
 
-def check_k2b(packed, nf, tri_id, name="K2b fused_interp_bwd",
+def check_k2b(captured, name="K2b fused_interp_bwd",
               replaces="vhap_tpu/ops/interp_pallas.py:421"):
-    """K2b against fused_interp_bwd_plain: 1e-4 * max|ref| per table row."""
-    from vhap_tpu_torch.ops.interp import (N_FIXED_OUT, fused_interp_bwd,
-                                           fused_interp_bwd_plain)
-    B, C, F = packed.shape
+    """K2b against its plain version, 1e-4 * max|ref| per table row: at the
+    train step's own launch (its saved (B, F, C) table, tri_id and
+    per-group cotangents, captured in phase 6), which is also the timed
+    call, and for a seeded random cotangent on every group (masked to the
+    foreground), so that every row is held."""
+    from vhap_tpu_torch.ops.interp import (GROUPS, N_FIXED_OUT, _launch_bwd,
+                                           _plain_bwd, fused_interp_bwd,
+                                           fused_interp_bwd_plain, group_slices)
+    table, tri_id, grads, nf = captured
+    packed = table.transpose(1, 2)
+    B, F, C = table.shape
     H, W = tri_id.shape[1:]
     gen = torch.Generator(device="cuda").manual_seed(2)
     fg = (tri_id > 0)[:, None]
     g = torch.randn((B, N_FIXED_OUT + nf, H, W), generator=gen,
                     device="cuda") * fg
-    d_k = fused_interp_bwd(packed, tri_id, g, nf)
-    d_p = fused_interp_bwd_plain(packed, tri_id, g, nf)
-    row_err = (d_k - d_p).abs().amax(dim=(0, 2))               # (C,)
-    row_ref = d_p.abs().amax(dim=(0, 2)).clamp(min=1e-30)
-    rel = float((row_err / row_ref).max())
-    if not rel <= 1e-4:
-        worst = int((row_err / row_ref).argmax())
-        raise RuntimeError(f"{name}: row {worst} error {rel} over 1e-4 * max|ref|")
-    err = float(row_err.max())
+
+    def row_rel(d_k, d_p):
+        row_err = (d_k - d_p).abs().amax(dim=(0, 2))            # (C,)
+        row_ref = d_p.abs().amax(dim=(0, 2))
+        rel = torch.where(row_ref > 0, row_err / row_ref.clamp(min=1e-30),
+                          torch.where(row_err > 0, float("inf"), 0.0))
+        return float(rel.max()), int(rel.argmax()), float(row_err.max())
+
+    rel_step, worst_step, err = row_rel(_launch_bwd(table, tri_id, grads, nf),
+                                        _plain_bwd(packed, tri_id, grads, nf))
+    rel_rand, worst_rand, err_rand = row_rel(
+        fused_interp_bwd(packed.contiguous(), tri_id, g, nf),
+        fused_interp_bwd_plain(packed, tri_id, g, nf))
+    for rel, worst, what in ((rel_step, worst_step, "the train step's cotangents"),
+                             (rel_rand, worst_rand, "a random cotangent")):
+        if not rel <= 1e-4:
+            raise RuntimeError(f"{name}: row {worst} error {rel} over 1e-4 * "
+                               f"max|ref| for {what}")
+    have = [k for k, gk in zip(GROUPS, grads) if gk is not None]
+    n_cot = sum(group_slices(nf)[k].stop - group_slices(nf)[k].start
+                if isinstance(group_slices(nf)[k], slice) else 1 for k in have)
     n_fg = int(fg.sum())
     n_faces = int(torch.unique(tri_id[tri_id > 0]).numel())
     return dict(
         name=name, source="vhap_tpu_torch/csrc/interp_bwd.cu",
-        replaces=replaces, max_abs_err=err,
-        max_rel_err=rel,
-        kernel=lambda: fused_interp_bwd(packed, tri_id, g, nf),
-        plain=lambda: fused_interp_bwd_plain(packed, tri_id, g, nf),
+        replaces=replaces, max_abs_err=max(err, err_rand),
+        max_rel_err=max(rel_step, rel_rand),
+        kernel=lambda: _launch_bwd(table, tri_id, grads, nf),
+        plain=lambda: _plain_bwd(packed, tri_id, grads, nf),
         library=None,
-        # tri_id of every pixel, the 19 + nf cotangent channels of each
-        # foreground pixel, each visible face's rows read once, the whole
-        # gradient table written once
-        n_bytes=tri_id.numel() * 4 + n_fg * (N_FIXED_OUT - 1 + nf) * 4
-                + n_faces * C * 4 + B * F * C * 4,
-        n_flops=n_fg * K2B_FLOPS_PER_FG_PIXEL,
-        note=f"abs err {err:.3g}, worst row rel err {rel:.3g} on {n_fg} "
-             f"foreground pixels, {n_faces} faces")
+        # tri_id of every pixel, the n_cot cotangent channels the step has of
+        # each foreground pixel, each visible face's rows read once, the
+        # whole gradient table written once
+        n_bytes=tri_id.numel() * 4 + n_fg * n_cot * 4 + n_faces * C * 4
+                + B * F * C * 4,
+        n_flops=n_fg * K2B_FLOPS_PER_FG_PIXEL, split=True,
+        note=f"the train step's launch: cotangents of {have} ({n_cot} of "
+             f"{N_FIXED_OUT - 1 + nf} channels), worst row rel err "
+             f"{rel_step:.3g}; random cotangent on every group: {rel_rand:.3g}; "
+             f"abs err {max(err, err_rand):.3g} on {n_fg} foreground pixels, "
+             f"{n_faces} faces")
 
 
 def check_k4(flat1, idx, wgt, tri_id):
@@ -432,14 +486,33 @@ def check_k4(flat1, idx, wgt, tri_id):
              f"wgt * g formed before the timed region")
 
 
+def device_split(fn, reps: int = 20):
+    """Device ms per call of fn() by device op name (torch.profiler over
+    `reps` calls, after one warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key[:48]: ev.self_device_time_total / 1e3 / reps
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def kernel_row(r, launches):
     """Time one check's kernel, plain version and library call; the JSON
     row of the kernels line."""
+    if r.get("split"):
+        log(f"[split] {r['name']}: one timed call's device ms by op: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in device_split(r["kernel"]).items()))
     ms, plain_ms = cuda_ms(r["kernel"]), cuda_ms(r["plain"])
     lib_ms = cuda_ms(r["library"]) if r.get("library") else None
     b_ms, b_by = bound(r["n_bytes"], r["n_flops"])
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-    log(f"[kernel] {r['name']}: {r['note']}; kernel {ms:.4f} ms, plain "
+    log(f"[kernel] {r['name']}: {r['note']}; kernel {ms:.4f} ms (previous "
+        f"kernels, a constant: {PRIOR_MS.get(r['name'])} ms), plain "
         f"{plain_ms:.4f} ms, library {lib}, bound {b_ms:.4f} ms by {b_by} "
         f"({r['n_bytes'] / 1e6:.1f} MB, {r['n_flops'] / 1e9:.3f} GFLOP)")
     row = {
@@ -453,8 +526,29 @@ def kernel_row(r, launches):
     return row
 
 
+@contextlib.contextmanager
+def capture_k2b():
+    """Record the arguments of every K2b launch inside the block (its
+    wrapper, ops/interp._launch_bwd, still launches)."""
+    from vhap_tpu_torch.ops import interp
+    captured = []
+    launch_bwd = interp._launch_bwd
+
+    def capture(table, tri_id, grads, n_flags):
+        captured.append((table, tri_id, list(grads), n_flags))
+        return launch_bwd(table, tri_id, grads, n_flags)
+
+    interp._launch_bwd = capture
+    try:
+        yield captured
+    finally:
+        interp._launch_bwd = launch_bwd
+
+
 def check_train_step(ts, kernels, per_step):
-    """Phase 6: one train step through the kernels, disturbance on."""
+    """Phase 6: one train step through the kernels, disturbance on. Also
+    returns K2b's arguments in it (table, tri_id, per-group cotangents,
+    nf), for phase 7."""
     s = ts.eval
     init, step = ts.make_step(True, True)
     params = s.params
@@ -462,7 +556,8 @@ def check_train_step(ts, kernels, per_step):
     gen = ts.generator(0)
     for k in kernels.values():
         k.launches = 0
-    new, state, E, logs = step(params, opt_state, s.batch, gen)
+    with capture_k2b() as captured:
+        new, state, E, logs = step(params, opt_state, s.batch, gen)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
     log(f"[train] launches in one train step: {launches}")
@@ -489,7 +584,9 @@ def check_train_step(ts, kernels, per_step):
         f"{k} {float(v):.6g}" for k, v in logs.items()))
     log(f"[train] optimizable {sorted(ts.opt_leaves)} changed, frozen "
         f"{sorted(set(params) - ts.opt_leaves)} bit-identical, gradients finite")
-    return launches
+    if len(captured) != 1:
+        raise RuntimeError(f"K2b's wrapper ran {len(captured)} times in the step")
+    return launches, captured[0]
 
 
 def check_train_plain(ts):
@@ -547,6 +644,46 @@ def train_timing(ts, t0):
         f"peak memory {peak / 2**30:.3f} GiB; through the plain versions "
         f"{ms_p:.3f} ms (median of 3); run {time.perf_counter() - t0:.1f} s")
     return ms_k
+
+
+def check_cotangent_traffic(ts):
+    """Phase 8c: the zero fills and in-place adds one train step makes on
+    per-pixel tensors; those on the fused interpolation's (B, 20 + nf, H, W)
+    channel buffer beside the previous design's."""
+    from vhap_tpu_torch.tools.profile_eval import buffer_ops
+    s = ts.eval
+    init, step = ts.make_step(True, True)
+    state = {"params": s.params, "opt": init(s.params)}
+    gen = ts.generator(5)
+
+    def one():
+        state["params"], state["opt"], _, _ = step(state["params"], state["opt"],
+                                                   s.batch, gen)
+        torch.cuda.synchronize()
+
+    one()
+    B, (H, W) = s.batch["rgb"].shape[0], s.image_size
+    ops = buffer_ops(one, B, H, W)
+    total = {}
+    for k, v in ops.items():
+        t = total.setdefault(k.split()[0], [0, 0.0])
+        t[0] += v["calls"]
+        t[1] += v["device_ms"]
+    channel = [k for k in ops  # keys "<op> (B, c, H, W)"
+               if ast.literal_eval(k.split(" ", 1)[1])[1:] in
+               [(c, H, W) for c in range(20, 64)]]
+    log("[cotangent] one train step's zero fills and adds on per-pixel "
+        "tensors: " + (", ".join(f"{k}: {v['calls']} calls, "
+                                 f"{v['device_ms']:.4f} device ms"
+                                 for k, v in ops.items()) or "none")
+        + "; in all " + ", ".join(f"{k} {n} calls {ms:.4f} device ms"
+                                  for k, (n, ms) in total.items())
+        + f"; on the (B, >=20, H, W) channel buffer {len(channel)} shapes, "
+        + ", ".join(f"{k}: {ops[k]['calls']} calls" for k in channel)
+        + "; the previous design's there (a constant): "
+        + ", ".join(f"{k} {n} calls, {ms} device ms"
+                    for k, (n, ms) in PRIOR_CHANNEL_BUFFER_OPS.items()))
+    return ops
 
 
 def check_vis_path(vs, kernels):
@@ -629,7 +766,7 @@ def check_k5(vs):
         # the id map written; the candidates its valid faces test
         n_bytes=(n_valid * K1_ROW_FIELDS_READ + (n_rows - n_valid)) * 4
                 + clip.shape[0] * H * W * 4,
-        n_flops=k1_candidates(setup, H, W) * K1_FLOPS_PER_CANDIDATE,
+        n_flops=k1_candidates(setup, H, W) * K1_FLOPS_PER_CANDIDATE, split=True,
         note="rasterize() through K1's kernel, timed at the vis inputs; "
              + "; ".join(notes))
 
@@ -638,6 +775,18 @@ def cam_clip(vs):
     from vhap_tpu_torch.ops import camera as cam
     return cam.camera_to_clip(cam.world_to_camera(vs.verts, vs.RT), vs.K,
                               vs.image_size)
+
+
+def tile_bins(rows, H, W) -> str:
+    """K1's binning of these setup rows (ops/rasterize.tile_bins_plain):
+    large faces, the most candidates of a tile and the tiles whose list
+    spills to the shared list."""
+    from vhap_tpu_torch.ops.rasterize import VIS_TILE_CAP, tile_bins_plain
+    listed, large = tile_bins_plain(rows, H, W)
+    per_tile = listed.sum(-1)
+    return (f"{int(large.sum())} large faces, at most {int(per_tile.max())} "
+            f"listed a tile, {int((per_tile > VIS_TILE_CAP).sum())} of "
+            f"{per_tile.numel()} tiles spill")
 
 
 def k1_candidates(setup, H, W) -> float:
@@ -860,8 +1009,9 @@ def check_dense_path(ts, kernels):
     eval_launches = {name: k.launches for name, k in kernels.items()}
     for k in kernels.values():
         k.launches = 0
-    Etd, ltd, gd = loss_and_grads(train_dense, s.params, ts.opt_leaves, s.batch,
-                                  ts.generator(8))
+    with capture_k2b() as k2b_args:
+        Etd, ltd, gd = loss_and_grads(train_dense, s.params, ts.opt_leaves,
+                                      s.batch, ts.generator(8))
     torch.cuda.synchronize()
     train_launches = {name: k.launches for name, k in kernels.items()}
     log(f"[dense] launches in one dense eval step: {eval_launches}; in one "
@@ -909,7 +1059,7 @@ def check_dense_path(ts, kernels):
     if not worst <= DENSE_GRAD_TOL:
         raise RuntimeError(f"dense vs flat gradients: {worst} of max|g| over "
                            f"{DENSE_GRAD_TOL}")
-    return eval_launches, train_launches
+    return eval_launches, train_launches, k2b_args[0]
 
 
 def check_k8(flat1, idx, wgt, tri_id, kernels):
@@ -966,6 +1116,55 @@ def check_k8(flat1, idx, wgt, tri_id, kernels):
              f"against K4's dflat; {n_live} live taps on {n_texels} texels; "
              f"library: float32 index_add_ of all {B * K * P} taps, rows "
              f"permuted before the timed region")
+
+
+def check_adversarial():
+    """Phase 18: K1 (through visibility) and K2b (through its wrapper)
+    against their plain versions on tools/raster_scenes.py's scenes, each
+    at its own size and at 250 x 333: tri_id identical; K2b within 1e-4 *
+    max|ref| per table row for nf = 0 and 2, with some groups' cotangent
+    None."""
+    from vhap_tpu_torch.ops.interp import GROUPS, _launch_bwd, _plain_bwd
+    from vhap_tpu_torch.ops.rasterize import (face_setup, pack_setup_rows,
+                                              visibility, visibility_plain)
+    from vhap_tpu_torch.tools import raster_scenes as rs
+    worst = 0.0
+    for name in rs.SCENES:
+        for size in (None, (250, 333)):
+            sc = rs.build(name, size=size, device="cuda")
+            clip, faces, H, W, cull = (sc[k] for k in ("clip", "faces", "H", "W",
+                                                       "cull"))
+            tri_k, _ = visibility(clip, faces, H, W, cull)
+            tri_p, _ = visibility_plain(clip, faces, H, W, cull)
+            n_diff = int((tri_k != tri_p).sum())
+            if n_diff:
+                raise RuntimeError(f"K1 on {name} {H}x{W}: tri_id differs from "
+                                   f"the plain version on {n_diff} pixels")
+            bins = tile_bins(pack_setup_rows(face_setup(clip, faces, cull)), H, W)
+            rels = []
+            for nf, none in ((0, ("zw", "vids")), (2, ("normal", "flags"))):
+                packed, grads = rs.interp_inputs(sc, nf, tri_k, seed=nf, none=none)
+                g = [grads[k] for k in GROUPS]
+                d_k = _launch_bwd(packed.transpose(1, 2).contiguous(), tri_k, g, nf)
+                d_p = _plain_bwd(packed, tri_k, g, nf)
+                row_err = (d_k - d_p).abs().amax(dim=(0, 2))
+                row_ref = d_p.abs().amax(dim=(0, 2))
+                if not bool((row_err <= 1e-4 * row_ref).all()):
+                    raise RuntimeError(
+                        f"K2b on {name} {H}x{W} nf={nf}: row error over 1e-4 * "
+                        f"max|ref|: {(row_err / row_ref.clamp(min=1e-30)).tolist()}")
+                rels.append(float((row_err / row_ref.clamp(min=1e-30)).max()))
+            worst = max(worst, *rels)
+            extra = ""
+            if name == "crowded_tile":
+                extra = (f", {int(torch.unique(tri_k[0, 32:48, 48:64]).numel())} "
+                         f"faces win in the crowded tile")
+            log(f"[adversarial] {name} {H}x{W} B{clip.shape[0]} cull "
+                f"{'on' if cull else 'off'}: K1 identical on {tri_k.numel()} "
+                f"pixels ({int((tri_k > 0).sum())} covered, {faces.shape[0]} "
+                f"faces, {bins}){extra}; K2b worst row rel err "
+                f"{rels[0]:.3g} (nf 0), {rels[1]:.3g} (nf 2)")
+    return worst
 
 
 def tracker_config(root, out, frames_dir):
@@ -1218,11 +1417,11 @@ def main() -> int:
     # ---- 6. the train path: one train step through the kernels ----
     train_kernels = dict(kernels, **{"K2b fused_interp_bwd": FUSED_INTERP_BWD,
                                      "K4 texel_scatter": WEIGHTED_FETCH_BWD})
-    train_launches = check_train_step(ts, train_kernels, 1)
+    train_launches, k2b_args = check_train_step(ts, train_kernels, 1)
 
     # ---- 7. K2b and K4 against their plain versions; 4 and 7 timed ----
-    packed, nf, tri_t, flat1, idx, wgt = step_inputs(ts, s.params)
-    r4 = check_k2b(packed, nf, tri_t)
+    tri_t, flat1, idx, wgt = step_inputs(ts, s.params)
+    r4 = check_k2b(k2b_args)
     r5 = check_k4(flat1, idx, wgt, tri_t)
     rows_out = [kernel_row(r, train_launches[r["name"]])
                 for r in (r1, r2, r3, r4, r5)]
@@ -1231,6 +1430,7 @@ def main() -> int:
     lap("5-7 (eval timing, train path, K2b K4)")
     check_train_plain(ts)
     single_step_ms = train_timing(ts, t0)
+    check_cotangent_traffic(ts)
     lap("8 (train vs plain, timing)")
 
     # ---- 9. the vis path: render_rgba_vis + its gradient through the kernels ----
@@ -1259,12 +1459,13 @@ def main() -> int:
 
     # ---- 16. the dense configuration (K7): eval and train steps ----
     from vhap_tpu_torch.ops.texture_fetch import SCATTER_VALS
-    dense_eval, dense_train = check_dense_path(ts, train_kernels)
-    # its kernels' inputs: the render builds them as the flat
-    # configuration's (the port has one path), from the same parameters
+    dense_eval, dense_train, dense_k2b_args = check_dense_path(ts, train_kernels)
+    # K7f's inputs: the render builds them as the flat configuration's (the
+    # port has one path), from the same parameters; K7b at the dense train
+    # step's own launch
     _, r9 = check_k2(s, verts_clip, verts, tri_id, name="K7f fused_interp (dense)",
                      replaces="vhap_tpu/ops/interp_pallas.py:259")
-    r10 = check_k2b(packed, nf, tri_t, name="K7b fused_interp_bwd (dense)",
+    r10 = check_k2b(dense_k2b_args, name="K7b fused_interp_bwd (dense)",
                     replaces="vhap_tpu/ops/interp_pallas.py:291")
     rows_out += [kernel_row(r9, dense_eval["K2f fused_interp"]),
                  kernel_row(r10, dense_train["K2b fused_interp_bwd"])]
@@ -1276,11 +1477,15 @@ def main() -> int:
     rows_out.append(kernel_row(r11, k8_launches["K8 scatter_taps"]))
     lap("17 (K8)")
 
-    # ---- 18. the tracker loop; 19. GT recovery ----
+    # ---- 18. K1 and K2b on adversarial scenes ----
+    check_adversarial()
+    lap("18 (adversarial scenes, K1 K2b)")
+
+    # ---- 19. the tracker loop; 20. GT recovery ----
     check_tracker_loop(train_kernels, single_step_ms)
-    lap("18 (tracker loop + resume)")
+    lap("19 (tracker loop + resume)")
     check_recovery()
-    lap("19 (GT recovery)")
+    lap("20 (GT recovery)")
     log(f"[done] run {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows_out}), flush=True)

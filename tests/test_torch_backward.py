@@ -15,9 +15,11 @@ from vhap_tpu.ops import rasterize as jr
 from vhap_tpu.ops.interp_pallas import fused_interp_flat
 from vhap_tpu.ops.texture_grad_pallas import weighted_fetch_exact
 from vhap_tpu_torch.ops import texture as ttex
-from vhap_tpu_torch.ops.interp import (N_FIXED_IN, N_FIXED_OUT,
-                                       fused_interp_bwd, fused_interp_bwd_plain,
-                                       fused_interp_plain)
+from vhap_tpu_torch.ops.interp import (GROUPS, N_FIXED_IN, N_FIXED_OUT,
+                                       fused_interp, fused_interp_bwd,
+                                       fused_interp_bwd_plain,
+                                       fused_interp_plain, group_slices,
+                                       join_channels)
 from vhap_tpu_torch.ops.texture_fetch import (scatter_taps_plain,
                                               tap_weight_grad_plain,
                                               weighted_fetch_bwd,
@@ -92,6 +94,63 @@ def test_plain_interp_bwd_is_autograd_of_forward():
     (c,) = torch.autograd.grad((out * _t(g)).sum(), p)
     np.testing.assert_allclose(c.numpy(), a.numpy(), rtol=0,
                                atol=1e-6 * float(a.abs().max()))
+
+
+def _per_output_grad(packed, tri_id, g, nf, none):
+    """fused_interp's per-output form on the CPU: its outputs, and the
+    table gradient when only the groups not in `none` enter the loss (the
+    others get no cotangent: autograd hands the backward None for them)."""
+    p = _t(packed).requires_grad_(True)
+    out, ovf = fused_interp(p, _t(tri_id), nf)
+    assert ovf == 0 and isinstance(out.texc, torch.Tensor)
+    sl = group_slices(nf)
+    loss = sum((getattr(out, k) * _t(g[:, sl[k]])).sum()
+               for k in GROUPS if k not in none)
+    (d,) = torch.autograd.grad(loss, p)
+    g_used = g.copy()
+    for k in none:
+        g_used[:, sl[k]] = 0.0
+    return out, d.numpy(), g_used
+
+
+def test_per_output_interp_matches_plain_and_pallas():
+    """fused_interp's outputs as separate autograd outputs: the values of
+    fused_interp_plain, bit for bit, and with zw, vids and flags feeding
+    nothing (no cotangent) the gradient of fused_interp_bwd_plain for a
+    cotangent that is 0 there, and of jax.grad of fused_interp_flat (Pallas
+    K2b in interpret mode) within 2e-5 * max|grad|."""
+    nf = 2
+    packed, tri_id, bins, g = _interp_inputs(4, nf)
+    out, got, g_used = _per_output_grad(packed, tri_id, g, nf,
+                                        ("zw", "vids", "flags"))
+    ref_out, _ = fused_interp_plain(_t(packed), _t(tri_id), nf)
+    assert torch.equal(join_channels(out), ref_out)
+    plain = fused_interp_bwd_plain(_t(packed), _t(tri_id), _t(g_used), nf).numpy()
+    np.testing.assert_array_equal(got, plain)
+
+    def loss(p):
+        return jnp.sum(fused_interp_flat(p, tri_id, bins, nf, 16, 128,
+                                         interpret=True)[0] * jnp.asarray(g_used))
+
+    ref = np.asarray(jax.grad(loss)(jnp.asarray(packed)))
+    scale = np.abs(ref).max()
+    assert np.abs(got - ref).max() <= 2e-5 * scale, np.abs(got - ref).max() / scale
+    # the rows only the unused groups feed get no gradient
+    rows = np.abs(got).max(axis=(0, 2))
+    zero = np.r_[9:12, 27:32]           # z rows (only zw), vids, flags
+    assert np.all(rows[zero] == 0) and np.all(np.delete(rows, zero) > 0)
+
+
+@pytest.mark.parametrize("nf,none", [(0, ("texc", "texd", "normal", "aa")),
+                                     (2, ("zw", "texc")), (0, ())])
+def test_per_output_interp_none_groups_match_plain(nf, none):
+    """The per-output form with other sets of groups left without a
+    cotangent (nf = 0: an empty flags group) equals the plain backward."""
+    packed, tri_id, _, g = _interp_inputs(5, nf)
+    _, got, g_used = _per_output_grad(packed, tri_id, g, nf, none)
+    plain = fused_interp_bwd_plain(_t(packed), _t(tri_id), _t(g_used), nf).numpy()
+    np.testing.assert_array_equal(got, plain)
+    assert np.abs(got).max() > 0
 
 
 def _fetch_inputs(seed, B=2, Hi=32, Wi=128, T=64):

@@ -48,7 +48,8 @@ def test_visibility_kernel_equals_plain(dev, seed, H, W):
 
 
 def test_fused_interp_kernel_matches_plain(dev):
-    from vhap_tpu_torch.ops.interp import FUSED_INTERP, fused_interp, fused_interp_plain
+    from vhap_tpu_torch.ops.interp import (FUSED_INTERP, fused_interp,
+                                           fused_interp_plain, join_channels)
     from vhap_tpu_torch.ops.rasterize import PLANE_KEYS, face_attribute_planes, visibility
     clip, faces = _scene(dev, seed=3)
     H, W, nf = 64, 256, 2
@@ -62,7 +63,8 @@ def test_fused_interp_kernel_matches_plain(dev):
                         torch.randint(0, 4, (B, nf, F), device=dev, generator=g).float(),
                         torch.stack([p[k] for k in PLANE_KEYS[:6]], 1)], 1).contiguous()
     n0 = FUSED_INTERP.launches
-    got, _ = fused_interp(packed, tri, nf)
+    out, _ = fused_interp(packed, tri, nf)
+    got = join_channels(out)
     ref, _ = fused_interp_plain(packed, tri, nf)
     torch.cuda.synchronize()
     assert FUSED_INTERP.launches == n0 + 1
@@ -126,15 +128,20 @@ def _interp_scene(dev, nf=2, seed=3):
 
 @pytest.mark.parametrize("nf,seed", [(2, 3), (0, 4)])
 def test_fused_interp_bwd_kernel_matches_plain(dev, nf, seed):
-    from vhap_tpu_torch.ops.interp import (FUSED_INTERP_BWD, fused_interp,
-                                           fused_interp_bwd, fused_interp_bwd_plain)
+    from vhap_tpu_torch.ops.interp import (FUSED_INTERP_BWD, GROUPS,
+                                           fused_interp, fused_interp_bwd,
+                                           fused_interp_bwd_plain, split_channels)
     packed, tri, cot = _interp_scene(dev, nf, seed)
     n0 = FUSED_INTERP_BWD.launches
     got = fused_interp_bwd(packed, tri, cot, nf)
     ref = fused_interp_bwd_plain(packed, tri, cot, nf)
-    # the same kernel through autograd
+    # the same kernel through autograd, one cotangent per output group
     p = packed.clone().requires_grad_(True)
-    (via_autograd,) = torch.autograd.grad(fused_interp(p, tri, nf)[0], p, cot)
+    out, _ = fused_interp(p, tri, nf)
+    cots = split_channels(cot, nf)
+    (via_autograd,) = torch.autograd.grad(
+        [getattr(out, k) for k in GROUPS if k != "flags" or nf],
+        p, [getattr(cots, k) for k in GROUPS if k != "flags" or nf])
     torch.cuda.synchronize()
     assert FUSED_INTERP_BWD.launches == n0 + 2
     assert int((tri > 0).sum()) > 1000
@@ -368,3 +375,65 @@ def test_tracker_runs_on_the_card(dev, tmp_path):
     assert rgb_steps > 0 and FUSED_INTERP_BWD.launches == n0 + rgb_steps
     assert all(np.isfinite(v) for v in report.values() if isinstance(v, float))
     assert tr.params["shape"].is_cuda
+
+
+@pytest.mark.parametrize("name", ["coplanar_ties", "covering_face", "near_plane",
+                                  "crowded_tile", "ragged"])
+@pytest.mark.parametrize("size", [None, (250, 333)])
+def test_visibility_kernel_on_adversarial_scenes(dev, name, size):
+    """K1's tile-binned design bit-identical to the plain version on the
+    scenes that stress it: equal-z ties and -0.0 (lowest face id wins), a
+    face over most of the image and near-plane straddlers (the shared
+    list), a tile with 1256 candidates (its list full, the rest spilled to
+    the shared list; 20 shared-memory chunks), ragged sizes."""
+    from vhap_tpu_torch.ops.rasterize import VISIBILITY, visibility, visibility_plain
+    from vhap_tpu_torch.tools import raster_scenes as rs
+    sc = rs.build(name, size=size, device=dev)
+    args = (sc["clip"], sc["faces"], sc["H"], sc["W"], sc["cull"])
+    n0 = VISIBILITY.launches
+    got, ovf = visibility(*args)
+    ref, _ = visibility_plain(*args)
+    torch.cuda.synchronize()
+    assert VISIBILITY.launches == n0 + 1 and ovf == 0
+    assert int((ref > 0).sum()) > 100 and torch.equal(got, ref)
+
+
+def test_visibility_kernel_uv_layout_cull_off(dev):
+    """K5's UV-layout call: the synthetic head's texture layout at 1024^2,
+    batch 1, culling off, as generate_flame_uvmask renders it."""
+    from vhap_tpu_torch.model.assets import load_flame_assets
+    from vhap_tpu_torch.ops.rasterize import rasterize, visibility_plain
+    from vhap_tpu_torch.ops.render_uvmap import transform_vt
+    a = load_flame_assets(asset_dir="/nonexistent_force_synth", seed=0)
+    vt = torch.as_tensor(np.asarray(a.verts_uvs, np.float32), device=dev)
+    faces = torch.as_tensor(np.asarray(a.textures_idx), dtype=torch.long, device=dev)
+    vc = transform_vt(vt)
+    _, _, tri = rasterize(vc, faces, (1024, 1024), cull_backfaces=False)
+    ref, _ = visibility_plain(vc, faces, 1024, 1024, False)
+    assert int((ref > 0).sum()) > 1000 and torch.equal(tri, ref)
+
+
+@pytest.mark.parametrize("name", ["coplanar_ties", "near_plane", "crowded_tile",
+                                  "ragged"])
+@pytest.mark.parametrize("nf,none", [(0, ("zw", "vids")), (2, ("normal", "flags")),
+                                     (2, ())])
+def test_fused_interp_bwd_kernel_on_adversarial_scenes(dev, name, nf, none):
+    """K2b's tile design within 1e-4 * max|ref| per table row of the plain
+    version, with some output groups' cotangent None: the crowded tile fills
+    a tile's 256 face slots."""
+    from vhap_tpu_torch.ops.interp import (FUSED_INTERP_BWD, GROUPS, _launch_bwd,
+                                           _plain_bwd)
+    from vhap_tpu_torch.ops.rasterize import visibility
+    from vhap_tpu_torch.tools import raster_scenes as rs
+    sc = rs.build(name, device=dev)
+    tri, _ = visibility(sc["clip"], sc["faces"], sc["H"], sc["W"], sc["cull"])
+    packed, grads = rs.interp_inputs(sc, nf, tri, seed=nf, none=none)
+    g = [grads[k] for k in GROUPS]
+    n0 = FUSED_INTERP_BWD.launches
+    got = _launch_bwd(packed.transpose(1, 2).contiguous(), tri, g, nf)
+    ref = _plain_bwd(packed, tri, g, nf)
+    torch.cuda.synchronize()
+    assert FUSED_INTERP_BWD.launches == n0 + 1
+    row_ref = ref.abs().amax(dim=(0, 2))
+    assert bool(((got - ref).abs().amax(dim=(0, 2)) <= 1e-4 * row_ref).all())
+    assert float(row_ref.max()) > 0

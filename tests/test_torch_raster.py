@@ -175,6 +175,71 @@ def test_visibility_clips_near_plane_straddlers_like_xla():
     _assert_visibility_agrees(tri, ref, verts_clip, faces, H, W)
 
 
+def _assert_winners_binned(verts_clip, faces, H, W, cull=True):
+    """Every covered pixel of the plain visibility lies in its winning
+    face's pixel box, and that face is a candidate of the pixel's tile or
+    in its image's shared list, by K1's tile rule (tile_bins_plain)."""
+    tri, _ = tr.visibility_plain(verts_clip, faces, H, W, cull)
+    rows = tr.pack_setup_rows(tr.face_setup(verts_clip, faces, cull))
+    listed, large = tr.tile_bins_plain(rows, H, W)
+    i0, i1, j0, j1, _ = tr.face_pixel_boxes(rows, H, W)
+    b, i, j = torch.nonzero(tri > 0, as_tuple=True)
+    assert len(b) > 100
+    f = tri[b, i, j].long() - 1
+    tile = (i // tr.VIS_TILE) * -(-W // tr.VIS_TILE) + j // tr.VIS_TILE
+    in_box = (i0[b, f] <= i) & (i <= i1[b, f]) & (j0[b, f] <= j) & (j <= j1[b, f])
+    assert bool(in_box.all())
+    assert bool((listed[b, tile, f] | large[b, f]).all())
+    assert not bool((listed.any(1) & large).any())   # one list per face
+    return int(large.sum())
+
+
+@pytest.mark.parametrize("scene,H,W", [("random0", 32, 128), ("random3", 37, 91),
+                                       ("straddling", 61, 203), ("head", 32, 128),
+                                       ("head", 37, 91)])
+def test_tile_bins_hold_every_winner(scene, H, W):
+    """K1's binning rule, in the kernel's float32 steps, on the CPU scenes
+    at ragged sizes too (the head's 32 x 128 clip-space scene, rasterized
+    at 37 x 91 as well)."""
+    if scene == "head":
+        verts_clip, faces = _head_scene(H=32, W=128)
+    elif scene == "straddling":
+        verts_clip, faces = _straddling_scene()
+    else:
+        verts_clip, faces = _random_scene(seed=int(scene[-1]))
+    _assert_winners_binned(_t(verts_clip), _t(faces).long(), H, W)
+
+
+@pytest.mark.parametrize("name", ["coplanar_ties", "covering_face", "near_plane",
+                                  "crowded_tile", "ragged"])
+def test_tile_bins_hold_every_winner_on_adversarial_scenes(name):
+    """The same on tools/raster_scenes.py's scenes: large faces, the
+    crowded tile (1256 candidates, 256 winning faces), ties, straddlers."""
+    from vhap_tpu_torch.tools import raster_scenes as rs
+    sc = rs.build(name)
+    n_large = _assert_winners_binned(sc["clip"], sc["faces"], sc["H"], sc["W"],
+                                     sc["cull"])
+    if name in ("covering_face", "near_plane"):
+        assert n_large > 0
+    if name == "crowded_tile":
+        assert int(torch.unique(tr.visibility_plain(
+            sc["clip"], sc["faces"], sc["H"], sc["W"])[0][0, 32:48, 48:64]).numel()) == 256
+
+
+def test_tile_bins_crowded_tile_spills():
+    """K1 keeps VIS_TILE_CAP candidates in a tile's list and moves the rest
+    to its image's shared list: the crowded scene's tile has more, so the
+    card's K1 tests on it run the spill path."""
+    from vhap_tpu_torch.tools import raster_scenes as rs
+    sc = rs.build("crowded_tile")
+    rows = tr.pack_setup_rows(tr.face_setup(sc["clip"], sc["faces"], sc["cull"]))
+    listed, _ = tr.tile_bins_plain(rows, sc["H"], sc["W"])
+    per_tile = listed.sum(-1)
+    tile = 2 * -(-sc["W"] // tr.VIS_TILE) + 3        # pixels 32:48, 48:64
+    assert int(per_tile[0, tile]) > tr.VIS_TILE_CAP
+    assert int((per_tile > tr.VIS_TILE_CAP).sum()) < per_tile.numel()
+
+
 def test_pack_setup_rows_layout():
     verts_clip, faces = _random_scene(seed=1)
     s = tr.face_setup(_t(verts_clip), _t(faces).long(), True)

@@ -27,8 +27,8 @@
 // is background (93 % of the bench's 16 x 512 x 512 canvas), and every
 // background pixel adds into face 0's row, so a per-pixel atomicAdd would
 // serialize millions of atomics on C addresses. Lanes of a warp that share
-// a face first pre-sum with shuffles (grouped by __match_any_sync, as in
-// csrc/interp_bwd.cu); a group's leader then adds into shared memory when
+// a face first pre-sum with shuffles (grouped by __match_any_sync,
+// reduce_peers below); a group's leader then adds into shared memory when
 // its face is 0, else atomically into the table. Each block covers
 // kPixPerThread * 256 pixels of one image, and adds its face-0 sums to the
 // table once per channel at the end. Only the order of the float atomics
@@ -40,13 +40,36 @@
 // to speak of.
 #include <cuda_runtime.h>
 
-#include "warp_reduce.cuh"
-
 namespace {
 
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kPixPerThread = 4;   // backward: pixels per thread
 constexpr int kChunk = 4;          // backward: channels pre-summed together
+
+// Segmented warp sum: after the call, the lowest lane of each group of
+// lanes with equal `peers` (a __match_any_sync mask) holds the sum of the
+// group's x. Every lane of the warp must call it (tree reduction over the
+// peers, after E. Westphal, "Voting and shuffling to optimize atomic
+// operations").
+template <int N>
+__device__ __forceinline__ void reduce_peers(unsigned peers, float (&x)[N]) {
+  const int lane = threadIdx.x & 31;
+  int rel_pos = __popc(peers & ((1u << lane) - 1u));   // peers below me
+  peers &= 0xfffffffeu << lane;                          // peers above me
+  while (__any_sync(kFullMask, peers)) {
+    const int next = __ffs(peers);                       // 1-based; 0 = none
+    const int src = next > 0 ? next - 1 : lane;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float t = __shfl_sync(kFullMask, x[i], src);
+      if (next) x[i] += t;
+    }
+    // lanes at odd positions handed their sum down: drop them
+    peers &= ~__ballot_sync(kFullMask, rel_pos & 1);
+    rel_pos >>= 1;
+  }
+}
 
 __global__ void plane_gather_fwd(const float* __restrict__ packed,  // (B|1, C, F)
                                  const int* __restrict__ tri_id,   // (B, HW)
@@ -82,7 +105,7 @@ __global__ void plane_gather_bwd(const float* __restrict__ grad,   // (B, C, HW)
     const int pix = base + k * blockDim.x + threadIdx.x;
     const bool live = pix < HW;
     const int fid = live ? max(tb[pix] - 1, 0) : 0;
-    const unsigned peers = __match_any_sync(vhap::kFullMask, fid);
+    const unsigned peers = __match_any_sync(kFullMask, fid);
     const bool leader = __ffs(peers) - 1 == lane;
     for (int c0 = 0; c0 < C; c0 += kChunk) {
       float x[kChunk];
@@ -91,7 +114,7 @@ __global__ void plane_gather_bwd(const float* __restrict__ grad,   // (B, C, HW)
         const int c = c0 + i;
         x[i] = (live && c < C) ? gb[(size_t)c * HW + pix] : 0.0f;
       }
-      vhap::reduce_peers(peers, x);
+      reduce_peers(peers, x);
       if (leader) {
 #pragma unroll
         for (int i = 0; i < kChunk; ++i) {

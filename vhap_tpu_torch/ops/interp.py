@@ -9,6 +9,10 @@ through. `fused_interp` launches the CUDA kernel K2f (csrc/interp.cu) for
 CUDA tensors, and its backward the kernel K2b (csrc/interp_bwd.cu);
 `fused_interp_plain` is their plain PyTorch version (autograd gives the
 backward), and `fused_interp_bwd_plain` the plain version of K2b alone.
+`fused_interp` returns the channels as an `InterpOut` of separate autograd
+outputs (zw, texc, texd, normal, vertex ids, flags, AA planes, match), so
+its backward gets one cotangent per output, or None for an output nothing
+used, and the whole channel buffer's cotangent is never assembled.
 
 The JAX package computes this function with two pairs of TPU kernels: K2
 (`fused_interp_flat`, on the globally budgeted flat bins) and K7
@@ -38,6 +42,9 @@ Background pixels carry 0 in every channel.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -150,6 +157,45 @@ def fused_interp_bwd_plain(packed: torch.Tensor, tri_id: torch.Tensor,
     return d_packed
 
 
+class InterpOut(NamedTuple):
+    """The fused interpolation's outputs, one per group of channels of the
+    (B, 20+nf, H, W) layout above; each (B, c, H, W), zw and match (B, H, W).
+    `fused_interp` returns them as separate outputs of one autograd node, so
+    autograd hands the backward one cotangent per group (None where nothing
+    depends on it) and never assembles the whole channel buffer."""
+    zw: torch.Tensor
+    texc: torch.Tensor
+    texd: torch.Tensor
+    normal: torch.Tensor
+    vids: torch.Tensor
+    flags: torch.Tensor
+    aa: torch.Tensor
+    match: torch.Tensor
+
+
+# the groups K2b takes a cotangent for, in channel order (csrc/interp_bwd.cu)
+GROUPS = ("zw", "texc", "texd", "normal", "vids", "flags", "aa")
+
+
+def group_slices(n_flags: int):
+    """Channel range of each InterpOut field in the (B, 20+nf, H, W) layout."""
+    nf = n_flags
+    return dict(zw=0, texc=slice(1, 3), texd=slice(3, 7), normal=slice(7, 10),
+                vids=slice(10, 13), flags=slice(13, 13 + nf),
+                aa=slice(13 + nf, 19 + nf), match=19 + nf)
+
+
+def split_channels(chans: torch.Tensor, n_flags: int) -> InterpOut:
+    """(B, 20+nf, H, W) channels -> InterpOut of views of them."""
+    return InterpOut(**{k: chans[:, sl] for k, sl in group_slices(n_flags).items()})
+
+
+def join_channels(out: InterpOut) -> torch.Tensor:
+    """InterpOut -> the (B, 20+nf, H, W) channels (a copy)."""
+    return torch.cat([out.zw[:, None], out.texc, out.texd, out.normal,
+                      out.vids, out.flags, out.aa, out.match[:, None]], dim=1)
+
+
 FUSED_INTERP = Kernel("fused_interp", "vhap_fused_interp",
                       [c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int,
                        c_float, c_float, c_ptr])
@@ -167,26 +213,80 @@ def _check_shapes(packed, tri_id, n_flags):
                          f"{tuple(tri_id.shape)} disagree (n_flags={n_flags})")
 
 
-def _launch_bwd(table: torch.Tensor, tri_id: torch.Tensor, g: torch.Tensor,
-                n_flags: int) -> torch.Tensor:
-    """K2b on the (B, F, C) table: -> d_packed (B, C, F)."""
+def _cotangent_table(grads: Sequence[Optional[torch.Tensor]], n_flags: int,
+                     B: int, H: int, W: int):
+    """Per group of GROUPS: (address, batch, channel and pixel strides) of
+    its cotangent for K2b, 0 where it has none. Returns the int64 table (a
+    ctypes array) and the tensors it points into (kept alive by the caller
+    until the launch)."""
+    chans = [group_slices(n_flags)[k] for k in GROUPS]
+    desc, keep = [], []
+    for name, sl, g in zip(GROUPS, chans, grads):
+        n_c = 1 if isinstance(sl, int) else sl.stop - sl.start
+        if g is None or n_c == 0:
+            desc += [0, 0, 0, 0]
+            continue
+        g4 = g[:, None] if isinstance(sl, int) else g
+        if tuple(g4.shape) != (B, n_c, H, W):
+            raise ValueError(f"cotangent of {name} {tuple(g.shape)} is not the "
+                             f"output's shape")
+        if g4.dtype != torch.float32 or not g4.is_cuda:
+            raise ValueError(f"cotangent of {name} must be a float32 CUDA tensor")
+        if g4.stride(2) != W * g4.stride(3):   # (h, w) must flatten to a pixel
+            g4 = g4.contiguous()
+        keep.append(g4)
+        desc += [g4.data_ptr(), g4.stride(0), g4.stride(1), g4.stride(3)]
+    return (ctypes.c_longlong * len(desc))(*desc), keep
+
+
+def _launch_bwd(table: torch.Tensor, tri_id: torch.Tensor,
+                grads: Sequence[Optional[torch.Tensor]], n_flags: int
+                ) -> torch.Tensor:
+    """K2b on the forward's (B, F, C) table, for one cotangent (or None) per
+    group of GROUPS: -> d_packed (B, C, F), a view of the (B, F, C)
+    gradient table."""
     B, F, C = table.shape
     H, W = tri_id.shape[1:]
-    g = g.contiguous()
-    check_cuda_tensor("grad", g, torch.float32, 4)
-    if tuple(g.shape) != (B, N_FIXED_OUT + n_flags, H, W):
-        raise ValueError(f"grad {tuple(g.shape)} is not the forward's output "
-                         f"shape {(B, N_FIXED_OUT + n_flags, H, W)}")
-    d_table = torch.zeros_like(table)
-    FUSED_INTERP_BWD(table.data_ptr(), tri_id.data_ptr(), g.data_ptr(), B, F,
-                     H, W, n_flags, 2.0 / W, 2.0 / H, d_table.data_ptr())
+    desc, keep = _cotangent_table(grads, n_flags, B, H, W)
+    d_table = torch.empty_like(table)             # the launch zeroes it
+    FUSED_INTERP_BWD(table.data_ptr(), tri_id.data_ptr(), desc, B, F, H, W,
+                     n_flags, 2.0 / W, 2.0 / H, d_table.data_ptr())
+    del keep
     return d_table.transpose(1, 2)
+
+
+def _plain_bwd(packed: torch.Tensor, tri_id: torch.Tensor,
+               grads: Sequence[Optional[torch.Tensor]], n_flags: int
+               ) -> torch.Tensor:
+    """K2b's plain version for per-group cotangents: the missing groups'
+    cotangent is 0."""
+    B, _, F = packed.shape
+    H, W = tri_id.shape[1:]
+    g = packed.new_zeros((B, N_FIXED_OUT + n_flags, H, W))
+    for name, gk in zip(GROUPS, grads):
+        if gk is not None:
+            g[:, group_slices(n_flags)[name]] = gk
+    return fused_interp_bwd_plain(packed, tri_id, g, n_flags)
+
+
+def _outputs(ctx, chans, saved, tri_id, n_flags):
+    """The per-output form shared by both autograd nodes: save what the
+    backward needs and return the InterpOut groups as separate outputs
+    (views of the one channel buffer). Unused outputs then come back with
+    no cotangent (None), not a zero-filled one."""
+    ctx.set_materialize_grads(False)
+    ctx.n_flags = n_flags
+    ctx.save_for_backward(saved, tri_id)
+    groups = split_channels(chans, n_flags)
+    ctx.mark_non_differentiable(groups.match)
+    return tuple(groups)
 
 
 class _FusedInterp(torch.autograd.Function):
     """K2f launch; its backward launches K2b (the adjoint of pixel_math
-    summed per face, TPU kernel _bwd_kernel_flat). The forward saves the
-    (B, F, C) table and tri_id; K2b re-reads each pixel's face row."""
+    summed per face, TPU kernel _bwd_kernel_flat) with one cotangent per
+    output group. The forward saves the (B, F, C) table and tri_id; K2b
+    re-reads each pixel's face row."""
 
     @staticmethod
     def forward(ctx, packed, tri_id, n_flags):
@@ -198,34 +298,62 @@ class _FusedInterp(torch.autograd.Function):
                           dtype=torch.float32, device=packed.device)
         FUSED_INTERP(table.data_ptr(), tri_id.data_ptr(), B, F, H, W, n_flags,
                      2.0 / W, 2.0 / H, out.data_ptr())
-        ctx.save_for_backward(table, tri_id)
-        ctx.n_flags = n_flags
-        return out
+        return _outputs(ctx, out, table, tri_id, n_flags)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         table, tri_id = ctx.saved_tensors
-        return _launch_bwd(table, tri_id, grad, ctx.n_flags), None, None
+        grads = grads[:len(GROUPS)]                 # match carries none
+        if all(g is None for g in grads):
+            return None, None, None
+        return _launch_bwd(table, tri_id, grads, ctx.n_flags), None, None
+
+
+class _FusedInterpPlain(torch.autograd.Function):
+    """The same per-output node for CPU tensors, through the plain versions
+    (fused_interp_plain forward, _plain_bwd backward)."""
+
+    @staticmethod
+    def forward(ctx, packed, tri_id, n_flags):
+        out, _ = fused_interp_plain(packed, tri_id, n_flags)
+        return _outputs(ctx, out, packed, tri_id, n_flags)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        packed, tri_id = ctx.saved_tensors
+        grads = grads[:len(GROUPS)]
+        if all(g is None for g in grads):
+            return None, None, None
+        return _plain_bwd(packed, tri_id, grads, ctx.n_flags), None, None
 
 
 def fused_interp_bwd(packed: torch.Tensor, tri_id: torch.Tensor,
                      g: torch.Tensor, n_flags: int) -> torch.Tensor:
     """K2b alone: the table gradient (B, 36+nf, F) of fused_interp for the
-    cotangent g (B, 20+nf, H, W). CUDA tensors go through the kernel, CPU
-    tensors through `fused_interp_bwd_plain`."""
+    whole cotangent g (B, 20+nf, H, W). CUDA tensors go through the kernel
+    (g's groups as InterpOut splits it), CPU tensors through
+    `fused_interp_bwd_plain`."""
     if packed.device.type == "cpu":
         return fused_interp_bwd_plain(packed, tri_id, g, n_flags)
     _check_shapes(packed, tri_id, n_flags)
-    return _launch_bwd(packed.transpose(1, 2).contiguous(), tri_id, g, n_flags)
+    g = g.contiguous()
+    check_cuda_tensor("grad", g, torch.float32, 4)
+    B, _, F = packed.shape
+    H, W = tri_id.shape[1:]
+    if tuple(g.shape) != (B, N_FIXED_OUT + n_flags, H, W):
+        raise ValueError(f"grad {tuple(g.shape)} is not the forward's output "
+                         f"shape {(B, N_FIXED_OUT + n_flags, H, W)}")
+    groups = split_channels(g, n_flags)
+    return _launch_bwd(packed.transpose(1, 2).contiguous(), tri_id,
+                       [getattr(groups, k) for k in GROUPS], n_flags)
 
 
 def fused_interp(packed: torch.Tensor, tri_id: torch.Tensor, n_flags: int):
     """(B, 36+nf, F) face tables + tri_id (B, H, W) ->
-    ((B, 20+nf, H, W) channels, overflow = 0).
+    (InterpOut of the (B, 20+nf, H, W) channels' groups, overflow = 0).
 
     CUDA tensors go through kernel K2f (and K2b backward); CPU tensors
-    through `fused_interp_plain`.
+    through the plain versions, in a node of the same per-output form.
     """
-    if packed.device.type == "cpu":
-        return fused_interp_plain(packed, tri_id, n_flags)
-    return _FusedInterp.apply(packed, tri_id, n_flags), 0
+    node = _FusedInterpPlain if packed.device.type == "cpu" else _FusedInterp
+    return InterpOut(*node.apply(packed, tri_id, n_flags)), 0

@@ -77,8 +77,6 @@ def _library_path() -> Path:
         h.update(name.encode())
         h.update(" ".join(ARCH_FLAGS + COMMON_FLAGS + flags).encode())
         h.update((CSRC / name).read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
     return BUILD_DIR / f"libvhap_kernels-{h.hexdigest()[:16]}.so"
 
 

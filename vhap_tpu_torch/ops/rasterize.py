@@ -4,10 +4,12 @@ Counterpart of vhap_tpu/ops/rasterize.py (reference: nvdiffrast's
 `dr.rasterize`, vhap/util/render_nvdiffrast.py:247-260) in two phases:
 
 1. **Visibility** (not differentiable): the per-pixel winning face id.
-   `visibility` launches the CUDA kernel K1 (csrc/visibility.cu) for CUDA
-   tensors; `visibility_plain` is its plain PyTorch version, a chunked
-   brute force like `_visibility_xla`. Both return tri_id = face id + 1,
-   0 = background, with no bin budget, so the overflow count is always 0.
+   `visibility` launches the CUDA kernel K1 (csrc/visibility.cu, a
+   tile-binned rasterizer) for CUDA tensors; `visibility_plain` is its
+   plain PyTorch version, a chunked brute force like `_visibility_xla`, and
+   `tile_bins_plain` the kernel's binning rule. Both return tri_id = face
+   id + 1, 0 = background, with no bin budget, so the overflow count is
+   always 0.
 2. **Attributes** (differentiable): per-face plane tables from clip-space
    vertices (`face_attribute_planes`), evaluated per pixel by the fused
    interpolation (ops/interp.py) on the training path, or, on the
@@ -32,12 +34,14 @@ x = (j+0.5)/W*2-1, y = (i+0.5)/H*2-1 (row 0 = bottom, y up).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from vhap_tpu_torch.ops.kernels import Kernel, c_float, c_int, c_ptr, \
-    check_cuda_tensor
+    check_cuda_tensor, library
 from vhap_tpu_torch.ops.plane_gather import plane_gather, plane_gather_plain
 
 W_EPS = 1e-6     # minimum clip w for a usable vertex
@@ -212,9 +216,72 @@ def visibility_plain(verts_clip: torch.Tensor, faces: torch.Tensor, H: int,
     return best_id, 0
 
 
+# K1's tile binning (csrc/visibility.cu): 16 x 16 pixel tiles; a face over
+# more than VIS_TILE_FACES tiles goes to its image's shared list, and so
+# does a face whose tile list already holds VIS_TILE_CAP faces
+VIS_TILE = 16
+VIS_TILE_FACES = 16
+VIS_TILE_CAP = 1024
+
+
+def _first_last_pixel(lo: torch.Tensor, hi: torch.Tensor, s: float, n: int):
+    """First / last pixel whose center (k + 0.5) * s - 1 may lie in [lo, hi],
+    widened by one and clamped to [0, n - 1]: csrc/visibility.cu's
+    first_pixel / last_pixel, in the same float32 steps."""
+    def t(x):
+        return torch.fmin(torch.fmax((x + 1.0) / x.new_tensor(s) - 0.5,
+                                     x.new_tensor(-2.0)),
+                          x.new_tensor(float(n) + 1.0))
+    first = torch.clamp(torch.floor(t(lo)).to(torch.int64) - 1, min=0)
+    last = torch.clamp(torch.ceil(t(hi)).to(torch.int64) + 1, max=n - 1)
+    return first, last
+
+
+def face_pixel_boxes(rows: torch.Tensor, H: int, W: int):
+    """K1's per-face pixel box from (B, F, SETUP_ROW) setup rows: (i0, i1,
+    j0, j1) int64 (B, F) each, inclusive, and `live` (B, F): the face is
+    valid and its box is not empty. Mirrors the kernel's arithmetic."""
+    j0, j1 = _first_last_pixel(rows[..., 9], rows[..., 11], 2.0 / W, W)
+    i0, i1 = _first_last_pixel(rows[..., 10], rows[..., 12], 2.0 / H, H)
+    live = (rows[..., 16] != 0) & (j0 <= j1) & (i0 <= i1)
+    return i0, i1, j0, j1, live
+
+
+def tile_bins_plain(rows: torch.Tensor, H: int, W: int):
+    """K1's binning, plainly (a (B, T, F) table: for small inputs).
+    Returns (listed (B, T, F) bool: face f is a candidate of tile t, tiles
+    row by row; large (B, F) bool: f goes to its image's shared list, which
+    every tile tests). A live face over at most VIS_TILE_FACES tiles is
+    listed in each tile its pixel box meets; a larger one is large. The
+    kernel keeps at most VIS_TILE_CAP of a tile's candidates in its list
+    and moves the others, in the order of its atomics, to the shared list:
+    a tile whose listed.sum(-1) exceeds VIS_TILE_CAP spills."""
+    i0, i1, j0, j1, live = face_pixel_boxes(rows, H, W)
+    ty = torch.arange(-(-H // VIS_TILE), device=rows.device)
+    tx = torch.arange(-(-W // VIS_TILE), device=rows.device)
+    n_tiles = (i1 // VIS_TILE - i0 // VIS_TILE + 1) * (
+        j1 // VIS_TILE - j0 // VIS_TILE + 1)
+    large = live & (n_tiles > VIS_TILE_FACES)
+    in_y = ((ty[None, :, None] >= (i0 // VIS_TILE)[:, None])
+            & (ty[None, :, None] <= (i1 // VIS_TILE)[:, None]))   # (B, TY, F)
+    in_x = ((tx[None, :, None] >= (j0 // VIS_TILE)[:, None])
+            & (tx[None, :, None] <= (j1 // VIS_TILE)[:, None]))   # (B, TX, F)
+    listed = in_y[:, :, None] & in_x[:, None] & (live & ~large)[:, None, None]
+    return listed.reshape(rows.shape[0], -1, rows.shape[1]), large
+
+
 VISIBILITY = Kernel("visibility", "vhap_visibility",
                     [c_ptr, c_int, c_int, c_int, c_int, c_float, c_float,
                      c_ptr, c_ptr])
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_ints(B: int, F: int, H: int, W: int) -> int:
+    """int32 scratch K1 takes at these shapes; the kernel's C interface owns
+    the layout. From shapes alone: the step never reads a device count."""
+    fn = library().vhap_visibility_scratch_ints
+    fn.argtypes, fn.restype = [c_int] * 4, ctypes.c_longlong
+    return fn(B, F, H, W)
 
 
 class _Visibility(torch.autograd.Function):
@@ -227,10 +294,13 @@ class _Visibility(torch.autograd.Function):
         B, F, width = rows.shape
         if width != SETUP_ROW:
             raise ValueError(f"setup rows must be (B, F, {SETUP_ROW})")
-        keys = torch.empty((B, H, W), dtype=torch.int64, device=rows.device)
+        if B * F * VIS_TILE_FACES >= 2**31:
+            raise ValueError(f"{B} x {F} faces overflow K1's int32 tile lists")
+        scratch = torch.empty(_scratch_ints(B, F, H, W), dtype=torch.int32,
+                              device=rows.device)
         tri_id = torch.empty((B, H, W), dtype=torch.int32, device=rows.device)
         VISIBILITY(rows.data_ptr(), B, F, H, W, 2.0 / W, 2.0 / H,
-                   keys.data_ptr(), tri_id.data_ptr())
+                   scratch.data_ptr(), tri_id.data_ptr())
         ctx.mark_non_differentiable(tri_id)
         return tri_id
 

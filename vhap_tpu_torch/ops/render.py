@@ -29,7 +29,8 @@ import torch
 
 from vhap_tpu_torch.ops import camera as cam
 from vhap_tpu_torch.ops.antialias import AA_PLANE_KEYS, antialias, antialias_rast
-from vhap_tpu_torch.ops.interp import fused_interp, fused_interp_plain
+from vhap_tpu_torch.ops.interp import (fused_interp, fused_interp_plain,
+                                      split_channels)
 from vhap_tpu_torch.ops.plane_gather import plane_gather, plane_gather_plain
 from vhap_tpu_torch.ops.rasterize import (PLANE_KEYS, face_attribute_planes,
                                           interpolate, rasterize, visibility,
@@ -277,15 +278,18 @@ def render_rgba(
         rast_dict, faces, verts_uv, faces_uv, settings,
         align_texture_face_mask, align_boundary_vert_mask,
         fid2cid if enable_disturbance else None)
-    interp = fused_interp if settings.use_kernels else fused_interp_plain
-    chans, plane_overflow = interp(packed, tri_id, n_flags)
-    zw = chans[:, 0]
-    texc = chans[:, 1:3].permute(0, 2, 3, 1)
-    texd = chans[:, 3:7].permute(0, 2, 3, 1)
-    normal = chans[:, 7:10].permute(0, 2, 3, 1)
-    vid_planes = [chans[:, 10 + i].to(torch.int32) for i in range(3)]
-    flag_planes = [chans[:, 13 + i] for i in range(n_flags)]
-    aa_planes = [chans[:, 13 + n_flags + i] for i in range(6)]
+    if settings.use_kernels:
+        ch, plane_overflow = fused_interp(packed, tri_id, n_flags)
+    else:
+        chans, plane_overflow = fused_interp_plain(packed, tri_id, n_flags)
+        ch = split_channels(chans, n_flags)
+    zw = ch.zw
+    texc = ch.texc.permute(0, 2, 3, 1)
+    texd = ch.texd.permute(0, 2, 3, 1)
+    normal = ch.normal.permute(0, 2, 3, 1)
+    vid_planes = list(ch.vids.to(torch.int32).unbind(1))
+    flag_planes = list(ch.flags.unbind(1))
+    aa_planes = list(ch.aa.unbind(1))
     out: Dict[str, torch.Tensor] = {"plane_overflow": plane_overflow}
 
     # ---- texture (region-masked gradient, render_nvdiffrast.py:389-399) ----

@@ -13,7 +13,12 @@ torch.profiler (CPU and CUDA activities) and prints one JSON line: the
 step's wall time (host clock around a synchronize), the device's busy time
 per step (sum of kernel and memory op times on the card) and idle share,
 and the --top device ops by time per step. The profiler's own cost is in
-the wall time; the device times are the card's.
+the wall time; the device times are the card's. For a train step it also
+records one more step with shapes and counts the zero fills (`aten::zero_`,
+which `aten::zeros` calls) and in-place adds (`aten::add_`) on any
+per-pixel tensor, (B, c, H, W) or (B, H, W, c), with their device time:
+among them the fused interpolation's per-pixel outputs, whose cotangents
+autograd materializes and sums where the render slices one buffer.
 """
 
 from __future__ import annotations
@@ -38,6 +43,26 @@ def _eval_step():
     return step, int(s.batch["rgb"].shape[0])
 
 
+def buffer_ops(step, B: int, H: int, W: int):
+    """Run step() once under torch.profiler with shapes recorded; return
+    {"<op> <shape>": {"calls", "device_ms"}} for the zero fills and
+    in-place adds whose first input is a per-pixel tensor: (B, c, H, W) or
+    (B, H, W, c), any c."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+    out = {}
+    for ev in prof.events():
+        shape = ev.input_shapes[0] if ev.input_shapes else []
+        if (ev.name in ("aten::zero_", "aten::add_") and len(shape) == 4
+                and shape[0] == B and [H, W] in (shape[1:3], shape[2:])):
+            row = out.setdefault(f"{ev.name} {tuple(shape)}",
+                                 {"calls": 0, "device_ms": 0.0})
+            row["calls"] += 1
+            row["device_ms"] += ev.device_time_total / 1e3
+    return out
+
+
 def _train_step(stage: str):
     from vhap_tpu_torch.tools.train_slice import build_train_slice
     ts = build_train_slice(device="cuda", stage=stage)
@@ -49,7 +74,7 @@ def _train_step(stage: str):
     def step():
         state["params"], state["opt"], _, _ = step_fn(
             state["params"], state["opt"], ts.eval.batch, gen)
-    return step, int(ts.eval.batch["rgb"].shape[0])
+    return step, int(ts.eval.batch["rgb"].shape[0]), ts.eval.image_size
 
 
 def _vis_step(grad: bool):
@@ -91,7 +116,7 @@ def main() -> None:
         run, batch = _vis_step(args.grad)
         name = "vis_grad" if args.grad else "vis"
     elif args.stage:
-        run, batch = _train_step(args.stage)
+        run, batch, (H, W) = _train_step(args.stage)
         name = args.stage
     else:
         run, batch = _eval_step()
@@ -120,6 +145,9 @@ def main() -> None:
     busy = sum(r["ms_per_step"] for r in rows)
     for r in rows:
         r["share"] = r["ms_per_step"] / busy if busy else None
+    extra = {}
+    if args.stage and not args.vis:
+        extra["pixel_buffer_ops_per_step"] = buffer_ops(step, batch, H, W)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
@@ -128,7 +156,7 @@ def main() -> None:
         "batch": batch, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy if rows else "not measured",
         "device_idle_share": 1.0 - busy / wall_ms if rows else "not measured",
-        "device_ops": len(rows), "top": rows[:args.top]}))
+        "device_ops": len(rows), **extra, "top": rows[:args.top]}))
 
 
 if __name__ == "__main__":
