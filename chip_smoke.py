@@ -1,7 +1,8 @@
 """Drive the PyTorch port on one CUDA card and check it: the evaluation and
 train steps, the visualization render, the entry points, the dense-list
 configuration, the value scatter, adversarial scenes for the visibility and
-fused-interp backward kernels, and the tracker loop.
+fused-interp backward kernels and adversarial uvs for the fused trilinear
+sampler, and the tracker loop.
 
     python3 chip_smoke.py
 
@@ -23,10 +24,16 @@ Phases (any failure ends the run with a non-zero exit):
      once, and the outputs must be finite and plausible;
   4. K1, K2f and K3 against their plain PyTorch versions on the eval
      step's own inputs (K1 visibility: tri_id identical; K2f fused interp:
-     1e-5 * max(1, |ref|) on foreground pixels; K3 texel fetch: 1e-5
-     absolute), with CUDA event times (median of 20 launches after
-     warm-up, L2 flushed before each) and the bound from this run's bytes
-     and operations;
+     1e-5 * max(1, |ref|) on foreground pixels); K3 (the fused trilinear
+     sample) and K4 (its backward) at the step's own sampler launch
+     (check_sampler: out 1e-5 absolute on every pixel and 0 pixels whose
+     taps, formed by the kernels' own tap code, choose another level or
+     texel; d_uv and d_uv_da 1e-4, dflat 1e-5 of max|ref| per channel
+     against the plain backward in float64); each kernel timed by its
+     device ms
+     (torch.profiler, summed over 20 calls, L2 flushed before each) and
+     its wrapper's CUDA-event ms (median of 20 launches after warm-up),
+     with the bound from this run's bytes and operations;
   5. the whole eval step through the plain versions: E_total and the
      photometric term agree to 1e-4 relative and the landmark term
      exactly; then the step's time, frames/s and peak memory;
@@ -39,10 +46,8 @@ Phases (any failure ends the run with a non-zero exit):
      step's own launch (its saved (B, F, C) table, tri_id and per-output
      cotangents, captured in phase 6; the timed call) and for a seeded
      random cotangent on every output group (1e-4 * max|ref| per table
-     row); K4 (texel scatter) on the step's taps with a seeded random
-     cotangent masked to the foreground (dflat 1e-5 * max|ref|, d_wgt 1e-5
-     absolute); timed and bounded as in 4; K1's and K2b's timed calls split
-     by device op (torch.profiler);
+     row); K3 and K4 at the step's own sampler launch and cotangent, as in
+     4 (the timed K4 call); timed and bounded as in 4;
   8. the train step through the plain versions, disturbance off, against
      the kernels' with the disturbance off: E_total and each log term to
      1e-4 relative, each optimizable leaf's gradient to 1e-3 * max|g|;
@@ -57,7 +62,7 @@ Phases (any failure ends the run with a non-zero exit):
      shade -> antialias_rast) with a seeded random cotangent, counts read
      back; K5 (the visibility kernel under rasterize()), K6 forward and
      backward, K3 and K4 must each have launched; outputs finite, gradients
-     finite and nonzero;
+     finite and nonzero; K3 and K4 at the gradient's own sampler launch;
  10. K5: rasterize()'s tri_id identical to visibility_plain at the vis
      inputs (cull on) and on the UV layout at 2048^2 (cull off, batch 1);
  11. K6 forward bit-identical to torch.gather at each of the path's gathers
@@ -67,7 +72,8 @@ Phases (any failure ends the run with a non-zero exit):
      timed and bounded as in 4, with torch.gather / scatter_add_ as the
      library calls;
  13. the vis render through the kernels vs use_kernels=False, every output
-     within 1e-5 absolute, and K3 at the render's unmasked texture call;
+     within 1e-5 absolute, and K3 and K4 at the render's own (unmasked)
+     sampler launch;
  14. the chain's gradients (vertices, texture) through the kernels vs the
      plain versions within 1e-3 * max|g|; the vis render's time and
      frames/s, kernels and plain;
@@ -78,29 +84,37 @@ Phases (any failure ends the run with a non-zero exit):
  16. the dense configuration (render.bin_mode='dense', the JAX package's
      K7 path): the eval and train steps rebuilt with it, counts zeroed
      before each and read after (K1, K2f, K3 once in the eval step; K1, K2f,
-     K3, K2b, K4 once in the train step); against the flat configuration on
+     K3, K2b, K4 once in the train step; K3 and K4 at each step's own
+     sampler launch); against the flat configuration on
      the same inputs and generator seed, outputs within 1e-6 absolute,
      energy and terms 1e-6 relative, overflow 0, gradients within
      DENSE_GRAD_TOL * max|g|, beside two flat runs' own differences (the
      atomics' order); K2f timed at these inputs and K2b at the dense train
      step's own launch are the K7 rows;
- 17. K8 (scatter_taps) on the train step's own taps with vals = wgt * g
+ 17. K8 (scatter_taps) on the train step's own taps (trilinear_taps of its
+     sampler launch) with vals = wgt * g for the step's own cotangent
      (16 x 8 x 3 x 262,144, ~400 MB), counts zeroed: one launch; within
-     1e-5 * max|ref| of a float64 index_add_ and of K4's dflat on the same
-     taps; timed and bounded as in 4, float32 index_add_ as the library call;
+     1e-5 * max|ref| of a float64 index_add_ and of K4's dflat for the same
+     uv, uv_da and g; timed and bounded as in 4, float32 index_add_ as the
+     library call;
  18. K1 and K2b on the adversarial scenes of tools/raster_scenes.py
      (equal-z ties and -0.0, a face over most of the image, near-plane
      straddlers, a tile of 256 winning faces over 1256 candidates, ragged
      sizes), each at its own size and at 250 x 333: tri_id identical to
      visibility_plain; K2b within 1e-4 * max|ref| per row of its plain
      version for nf = 0 and 2 with some output groups' cotangent None;
+     then K3 and K4 as in 4 on tools/texture_cases.py's uvs at the train
+     step's width and texture (integer lods, lod L - 1, fx2 == fy2 ties,
+     texel-centre uvs, uvs on and beyond [0, 1], masked and zero-cotangent
+     pixels), uv and uv_da as plane views;
  19. the tracker loop: GlobalTracker at full width (batch 16, 512^2,
      texture 2048, 300/100, SH, static offset, residual texture,
      disturbance on) and reduced depth (LOOP_STEPS, one global epoch) on a
      32-frame sequence from the port's generator, media every
      LOOP_MEDIA_EVERY steps into a temporary directory, counts zeroed before
      and read after: K1, K2f, K3 once per rgb train step and evaluation
-     render, K2b, K4 once per rgb train step; the batch-0 eval energy falls;
+     render, K2b, K4 once per rgb train step; K3 and K4 checked as in 4 at
+     the last rgb step's sampler launch; the batch-0 eval energy falls;
      the checkpoint has the reference npz schema; per-stage median ms/step,
      the loop's ms/step against the single train step's (phase 8), wall per
      tracked frame, the media split and peak memory; then a second tracker
@@ -136,25 +150,30 @@ PEAK_F32_FLOP_S = 67e12
 # flops per unit of work, counted from the kernels' source
 K1_FLOPS_PER_CANDIDATE = 23   # pixel center, 3 edge planes, z plane, signs
 K2_FLOPS_PER_FG_PIXEL = 118   # csrc/interp.cu, one foreground pixel
-K3_FLOPS_PER_TAP = 6          # 3 channels x (mul + add)
 K1_ROW_FIELDS_READ = 17       # setup row fields visibility.cu reads (A0X..VALID)
 # csrc/interp_bwd.cu, one foreground pixel: 85 to recompute the forward's
 # intermediates, ~197 for the adjoint, 38 row adds (36 + nf, nf = 2)
 K2B_FLOPS_PER_FG_PIXEL = 320
-K4_FLOPS_PER_LIVE_PIXEL_TAP = 5   # d_wgt: 3 mul + 2 add, every tap of a live pixel
+# csrc/trilinear.cuh + texture_fetch.cu, one covered pixel: the lod 18, the
+# level share 1, two levels' corners 2 x 16, the 8 tap weights 8
+K3_FLOPS_PER_PIXEL = 59
+K3_FLOPS_PER_LIVE_TAP = 6         # 3 channels x (mul + add)
+# csrc/texture_scatter.cu, one live pixel: the taps again 59, 8 texel . g
+# 40, the bilinear and level-share adjoints 2 x 31, d_uv 8, the lod chain
+# to d_uv_da 16
+K4_FLOPS_PER_LIVE_PIXEL = 185
 K4_FLOPS_PER_LIVE_TAP = 6         # dflat: 3 channels x (mul + atomic add)
 # each kernel's time measured by this script on the previous kernels (NVIDIA
 # H100 80GB HBM3, 700 W; PERF.md), printed in the log beside this run's and
-# never in the kernels line. K1/K5 were
-# one warp per face into a 64-bit key buffer and K2b/K7b one thread per
-# pixel with per-warp pre-sums; the other kernels are unchanged and show
-# the call-to-call drift
-PRIOR_MS = {"K1 visibility": 0.0607, "K2f fused_interp": 0.1598,
-          "K3 texel_fetch": 0.1042, "K2b fused_interp_bwd": 0.2386,
-          "K4 texel_scatter": 0.1307, "K5 visibility": 0.0596,
-          "K6f plane_gather": 0.0835, "K6b plane_gather_bwd": 0.1320,
-          "K7f fused_interp (dense)": 0.1598,
-          "K7b fused_interp_bwd (dense)": 0.2391, "K8 scatter_taps": 0.2817}
+# never in the kernels line: the wrapper's CUDA-event ms. K3/K4 were a
+# gather and a scatter of (B, 8, P) idx/wgt taps formed in eager PyTorch;
+# the other kernels are unchanged and show the call-to-call drift
+PRIOR_MS = {"K1 visibility": 0.0526, "K2f fused_interp": 0.1611,
+            "K3 trilinear_sample": 0.1165, "K2b fused_interp_bwd": 0.0849,
+            "K4 trilinear_sample_bwd": 0.1280, "K5 visibility": 0.0534,
+            "K6f plane_gather": 0.0879, "K6b plane_gather_bwd": 0.1330,
+            "K7f fused_interp (dense)": 0.2154,
+            "K7b fused_interp_bwd (dense)": 0.0846, "K8 scatter_taps": 0.2864}
 # the train step's zero fills and adds on the (16, 22, 512, 512) channel
 # buffer when the render sliced one channel tensor (calls, device ms;
 # tools/profile_eval.py, same card)
@@ -183,15 +202,29 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+class L2Flush:
+    """A 64 MB device-to-device copy before each timed launch (the eval
+    step meets these inputs cold); the profiler names it "Memcpy DtoD",
+    apart from every kernel's own ops."""
+
+    def __init__(self):
+        self.src = torch.zeros(64 * 2**20 // 4, device="cuda")
+        self.dst = torch.empty_like(self.src)
+
+    def __call__(self):
+        self.dst.copy_(self.src)
+
+
 def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median device time of fn() over `reps` launches, L2 flushed before
-    each (the eval step meets these inputs cold)."""
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    """Median CUDA-event time of fn() over `reps` launches, L2 flushed
+    before each: the wrapper's time, host work between the events
+    included."""
+    flush = L2Flush()
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -200,6 +233,30 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_split(fn, reps: int = REPS):
+    """Device ms per call of fn() by device op name: torch.profiler over
+    `reps` calls, L2 flushed before each as in cuda_ms, the flush's copies
+    left out. A session that records no device op is run once more, over
+    more calls; {} if that one records none either."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = L2Flush()
+    fn()
+    torch.cuda.synchronize()
+    for n in (reps, 3 * reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        ops = {ev.key[:48]: ev.self_device_time_total / 1e3 / n
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.key.startswith("Memcpy DtoD")}
+        if ops:
+            return ops
+    return {}
 
 
 def bound(n_bytes: float, n_flops: float):
@@ -268,7 +325,7 @@ def check_k1(s, verts_clip):
         # the id map written
         n_bytes=(n_valid * K1_ROW_FIELDS_READ + (n_rows - n_valid)) * 4
                 + B * H * W * 4,
-        n_flops=n_cand * K1_FLOPS_PER_CANDIDATE, split=True,
+        n_flops=n_cand * K1_FLOPS_PER_CANDIDATE,
         note=f"tri_id identical on {B * H * W} pixels; {tile_bins(rows, H, W)}")
 
 
@@ -304,75 +361,183 @@ def check_k2(s, verts_clip, verts, tri_id, name="K2f fused_interp",
              f"pixels, {n_faces} faces")
 
 
-def check_k3(albedo_map, chans, tri_id):
-    """K3 against weighted_fetch_plain: 1e-5 absolute."""
-    from vhap_tpu_torch.ops.texture import build_mip_pyramid, trilinear_taps
-    from vhap_tpu_torch.ops.texture_fetch import weighted_fetch, weighted_fetch_plain
-    albedo = albedo_map.permute(0, 2, 3, 1)
-    flat, offsets, sizes = build_mip_pyramid(albedo)
-    flat1 = flat[0].contiguous()
-    idx, wgt = trilinear_taps(albedo.shape[1:3], offsets, sizes,
-                              chans[:, 1:3].permute(0, 2, 3, 1),
-                              chans[:, 3:7].permute(0, 2, 3, 1), tri_id > 0)
-    idx, wgt = idx.contiguous(), wgt.contiguous()
-    out_k = weighted_fetch(flat1, idx, wgt)
-    out_p = weighted_fetch_plain(flat1, idx, wgt)
-    err = float((out_k - out_p).abs().max())
-    if not err <= 1e-5:
-        raise RuntimeError(f"K3: max abs error {err} over 1e-5")
-    live = wgt != 0
-    n_taps = int(live.sum())
-    n_texels = int(torch.unique(idx[live]).numel())
-    return dict(
-        name="K3 texel_fetch", source="vhap_tpu_torch/csrc/texture_fetch.cu",
-        replaces="vhap_tpu/ops/texture_grad_pallas.py:476", max_abs_err=err,
-        kernel=lambda: weighted_fetch(flat1, idx, wgt),
-        plain=lambda: weighted_fetch_plain(flat1, idx, wgt),
-        # every weight read, an index only for a live tap (the kernel skips
-        # the rest), output written, each texel a live tap touches read once
-        n_bytes=(wgt.numel() + n_taps + out_k.numel()) * 4 + n_texels * 12,
-        n_flops=n_taps * K3_FLOPS_PER_TAP,
-        note=f"abs err {err:.3g}, {n_taps} live taps on {n_texels} texels")
+@contextlib.contextmanager
+def capture_sampler(keep_last: bool = False):
+    """Record the arguments of every fused-sampler launch inside the block:
+    {"fwd": [(flat1, uv, uv_da, mask, offsets, sizes)], "bwd": [(flat1, uv,
+    uv_da, mask, offsets, sizes, g)]} (K3 through trilinear_sample, K4
+    through ops/texture_fetch._launch_bwd); the wrappers still launch.
+    keep_last keeps only the newest of each."""
+    from vhap_tpu_torch.ops import texture_fetch as tf
+    captured = {"fwd": [], "bwd": []}
+    sampler, launch_bwd = tf._TrilinearSample, tf._launch_bwd
+
+    def record(kind, args):
+        if keep_last:
+            captured[kind].clear()
+        captured[kind].append(args)
+
+    class Recording:
+        @staticmethod
+        def apply(*args):
+            record("fwd", args)
+            return sampler.apply(*args)
+
+    def recording_bwd(*args):
+        record("bwd", args)
+        return launch_bwd(*args)
+
+    tf._TrilinearSample, tf._launch_bwd = Recording, recording_bwd
+    try:
+        yield captured
+    finally:
+        tf._TrilinearSample, tf._launch_bwd = sampler, launch_bwd
 
 
-def step_inputs(ts, params):
-    """The train step's texel-tap inputs, rebuilt as render_rgba builds
-    them: tri_id, the pyramid's level-0 rows and the texture taps."""
-    from vhap_tpu_torch.ops.interp import fused_interp
-    from vhap_tpu_torch.ops.render import (RenderSettings, face_tables,
-                                           rasterize_mesh)
-    from vhap_tpu_torch.ops.texture import build_mip_pyramid, trilinear_taps
-    from vhap_tpu_torch.tracker import params as P
-    from vhap_tpu_torch.tracker.energy import fill_cam_params, render_verts_uv
-    s = ts.eval
-    head, batch, (H, W) = s.head, s.batch, s.image_size
-    stage_cfg = s.cfg.pipeline[ts.stage]
+def check_sampler(where, args, g=None, seed=3):
+    """K3 and K4 against their plain versions at one launch's arguments
+    (flat1, uv, uv_da, mask, offsets, sizes): K3's out within 1e-5 absolute
+    on every pixel, and 0 pixels whose taps (level and texels, formed by
+    the kernels' own tap code) differ from trilinear_taps'; K4 for the
+    launch's own cotangent g, or a seeded random one on the masked-in
+    pixels: d_uv and d_uv_da within 1e-4 and dflat within 1e-5 of max|ref|
+    per channel, the reference trilinear_sample_bwd_plain for a float64
+    texture and cotangent (the exact chain rule of the float32 forward's
+    taps; the float32 plain version's own error is logged beside). Returns
+    the K3 and K4 rows' checks, timed at these inputs."""
+    from vhap_tpu_torch.ops.texture_fetch import (trilinear_sample,
+                                                  trilinear_sample_bwd,
+                                                  trilinear_sample_bwd_plain,
+                                                  trilinear_sample_plain,
+                                                  trilinear_taps,
+                                                  trilinear_taps_card)
+    flat1, uv, uv_da, mask, offsets, sizes = args[:6]
+    size = tuple(sizes[0])
+    B, Hi, Wi = uv.shape[:3]
+    P, N = Hi * Wi, flat1.shape[0]
     with torch.no_grad():
-        tsi = batch["timestep_index"]
-        sl = P.slice_batch(params, tsi)
-        B = tsi.shape[0]
-        verts = head(shape=params["shape"][None].expand(B, -1), expr=sl["expr"],
-                     rotation=sl["rotation"], neck=sl["neck_pose"],
-                     jaw=sl["jaw_pose"], eyes=sl["eyes_pose"],
-                     translation=sl["translation"], return_landmarks=False,
-                     static_offset=params.get("static_offset"))
-        K, RT = fill_cam_params(batch, params, False, (H, W))
-        rast = rasterize_mesh(verts, head.faces, RT, K, (H, W), RenderSettings(),
-                              with_attrs=False)
-        packed, nf = face_tables(
-            rast, head.faces, render_verts_uv(head, "cuda"), head.textures_idx,
-            RenderSettings(),
-            head.masks.face_mask_padded(stage_cfg.align_texture_except),
-            head.masks.vertex_mask(stage_cfg.align_boundary_except),
-            head.masks.fid2cid)
-        tri_id = rast["tri_id"]
-        ch, _ = fused_interp(packed, tri_id, nf)
-        albedo = s.get_albedo(params).permute(0, 2, 3, 1)
-        flat, offsets, sizes = build_mip_pyramid(albedo)
-        idx, wgt = trilinear_taps(albedo.shape[1:3], offsets, sizes,
-                                  ch.texc.permute(0, 2, 3, 1),
-                                  ch.texd.permute(0, 2, 3, 1), tri_id > 0)
-    return tri_id, flat[0].contiguous(), idx.contiguous(), wgt.contiguous()
+        out_k = trilinear_sample(flat1, size, offsets, sizes, uv, uv_da, mask)
+        out_p = trilinear_sample_plain(flat1, size, offsets, sizes, uv, uv_da, mask)
+        idx_k, wgt_k = trilinear_taps_card(size, offsets, sizes, uv, uv_da, mask)
+        idx, wgt = trilinear_taps(size, offsets, sizes, uv, uv_da, mask)
+    err = float((out_k - out_p).abs().max())
+    n_other = int((idx_k != idx).any(dim=1).sum())
+    err_taps = float((wgt_k - wgt).abs().max())
+    del idx_k, wgt_k, out_k, out_p
+    if not (err <= 1e-5 and n_other == 0):
+        raise RuntimeError(f"K3 at {where}: out error {err} (1e-5), {n_other} "
+                           f"pixels with other taps than the plain version's")
+    covered = (torch.ones((B, P), dtype=torch.bool, device="cuda") if mask is None
+               else mask.reshape(B, P))
+    if g is None:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        g = torch.randn((B, P, 3), generator=gen, device="cuda") * covered[..., None]
+    d_uv, d_da, dflat = trilinear_sample_bwd(flat1, size, offsets, sizes, uv,
+                                             uv_da, mask, g)
+    refs = trilinear_sample_bwd_plain(flat1.double(), size, offsets, sizes,
+                                      uv, uv_da, mask, g.double())
+    plain32 = trilinear_sample_bwd_plain(flat1, size, offsets, sizes, uv,
+                                         uv_da, mask, g)
+
+    def rel(x, ref):
+        scale = ref.reshape(-1, ref.shape[-1]).abs().amax(0)
+        e = (x.double() - ref).reshape(-1, ref.shape[-1]).abs().amax(0)
+        return float((e / scale.clamp(min=1e-30)).max()), float(e.max())
+
+    (rel_uv, _), (rel_da, _), (rel_flat, err_flat) = (
+        rel(x, r) for x, r in zip((d_uv, d_da, dflat), refs))
+    rel_p32 = [rel(x, r)[0] for x, r in zip(plain32, refs)]
+    del refs, plain32, d_uv, d_da, dflat
+    if not (rel_uv <= 1e-4 and rel_da <= 1e-4 and rel_flat <= 1e-5):
+        raise RuntimeError(f"K4 at {where}: d_uv {rel_uv}, d_uv_da {rel_da} of "
+                           f"max|ref| (1e-4), dflat {rel_flat} (1e-5); the "
+                           f"float32 plain version: {rel_p32}")
+    live = covered & (g.abs().sum(-1) > 0)
+    n_cov, n_live = int(covered.sum()), int(live.sum())
+    live_tap = wgt != 0
+    n_taps = int(live_tap.sum())
+    n_texels = int(torch.unique(idx[live_tap]).numel())
+    n_taps_k4 = int((live_tap & live[:, None]).sum())
+    n_texels_k4 = int(torch.unique(idx[live[:, None].expand_as(idx)]).numel())
+    flat_rows = (wgt[..., None] * g[:, None]).reshape(-1, 3)   # formed untimed
+    idx_flat = idx.reshape(-1).long()
+    del idx, wgt, live_tap
+    mask_bytes = 0 if mask is None else B * P
+    log(f"[sampler] {where}: K3 out abs err {err:.3g}, 0 pixels with other taps "
+        f"(taps' weight err {err_taps:.3g}); K4 d_uv {rel_uv:.3g}, d_uv_da "
+        f"{rel_da:.3g}, dflat {rel_flat:.3g} of max|ref| against float64 (the "
+        f"float32 plain version: " + ", ".join(f"{x:.3g}" for x in rel_p32)
+        + f"); {n_cov} covered, {n_live} with a cotangent of {B * P} pixels")
+    k3 = dict(
+        name="K3 trilinear_sample", source="vhap_tpu_torch/csrc/texture_fetch.cu",
+        replaces="vhap_tpu/ops/texture_grad_pallas.py:476", max_abs_err=err,
+        max_abs_err_taps=err_taps, pixels_other_taps=n_other,
+        kernel=lambda: trilinear_sample(flat1, size, offsets, sizes, uv, uv_da, mask),
+        plain=lambda: trilinear_sample_plain(flat1, size, offsets, sizes, uv,
+                                             uv_da, mask),
+        library=None,
+        # the mask of every pixel, uv and uv_da of a covered one, each texel
+        # a live tap touches read once, out written
+        n_bytes=mask_bytes + n_cov * 24 + n_texels * 12 + B * P * 12,
+        n_flops=n_cov * K3_FLOPS_PER_PIXEL + n_taps * K3_FLOPS_PER_LIVE_TAP,
+        note=f"at {where}: abs err {err:.3g}, 0 pixels with other taps; "
+             f"{n_cov} covered pixels, {n_taps} live taps on {n_texels} texels")
+    k4 = dict(
+        name="K4 trilinear_sample_bwd",
+        source="vhap_tpu_torch/csrc/texture_scatter.cu",
+        replaces="vhap_tpu/ops/texture_grad_pallas.py:338", max_abs_err=err_flat,
+        max_rel_err=rel_flat, max_rel_err_d_uv=max(rel_uv, rel_da),
+        kernel=lambda: trilinear_sample_bwd(flat1, size, offsets, sizes, uv,
+                                            uv_da, mask, g),
+        plain=lambda: trilinear_sample_bwd_plain(flat1, size, offsets, sizes,
+                                                 uv, uv_da, mask, g),
+        library=lambda: torch.zeros((N, 3), device="cuda").index_add_(
+            0, idx_flat, flat_rows),
+        # the mask and g of every pixel; uv, uv_da and the texels of the 8
+        # taps of a live pixel (each texel once); d_uv and d_uv_da of every
+        # pixel and the whole dflat written once
+        n_bytes=mask_bytes + B * P * 12 + n_live * 24 + n_texels_k4 * 12
+                + B * P * 24 + N * 12,
+        n_flops=n_live * K4_FLOPS_PER_LIVE_PIXEL + n_taps_k4 * K4_FLOPS_PER_LIVE_TAP,
+        note=f"at {where}: against float64, dflat {rel_flat:.3g} of max|ref| "
+             f"(abs {err_flat:.3g}), d_uv {rel_uv:.3g}, d_uv_da {rel_da:.3g}; "
+             f"{n_taps_k4} live taps of {n_live} live pixels, their 8 taps on "
+             f"{n_texels_k4} texels; library: index_add_ of the texel gradient "
+             f"alone (all {B * 8 * P} taps, wgt * g formed before the timed "
+             f"region)")
+    return k3, k4
+
+
+def check_sampler_launches(where, captured, n_fwd, n_bwd):
+    """The fused sampler's wrappers ran n_fwd / n_bwd times in a captured
+    run; K3 and K4 checked at its last launch, with the backward's own
+    cotangent where it ran."""
+    if (len(captured["fwd"]), len(captured["bwd"])) != (n_fwd, n_bwd):
+        raise RuntimeError(f"{where}: the sampler's wrappers ran "
+                           f"{len(captured['fwd'])} / {len(captured['bwd'])} "
+                           f"times, expected {n_fwd} / {n_bwd}")
+    if captured["bwd"]:
+        args = captured["bwd"][-1]
+        return check_sampler(where, args[:6], g=args[6])
+    return check_sampler(where, captured["fwd"][-1])
+
+
+def check_adversarial_sampler(size, tex_res):
+    """Phase 18b: K3 and K4 on tools/texture_cases.py's inputs at the train
+    step's width (integer lods, lod L - 1, ties, texel-centre uvs, uvs on
+    and beyond [0, 1], masked and zero-cotangent pixels), uv and uv_da as
+    views of (B, c, H, W) planes."""
+    from vhap_tpu_torch.ops.texture import build_mip_pyramid
+    from vhap_tpu_torch.tools import texture_cases
+    B, (H, W) = size
+    c = texture_cases.build(B, H, W, tex_res, seed=11)
+    flat, offsets, sizes = build_mip_pyramid(torch.as_tensor(c["tex"], device="cuda"))
+    uv, da = (torch.as_tensor(c[k], device="cuda").permute(0, 3, 1, 2)
+              .contiguous().permute(0, 2, 3, 1) for k in ("uv", "uv_da"))
+    mask = torch.as_tensor(c["mask"], device="cuda")
+    g = torch.as_tensor(c["g"], device="cuda")
+    check_sampler(f"texture_cases {B}x{H}x{W} tex {tex_res}",
+                  (flat[0].contiguous(), uv, da, mask, offsets, sizes), g=g)
 
 
 def check_k2b(captured, name="K2b fused_interp_bwd",
@@ -428,7 +593,7 @@ def check_k2b(captured, name="K2b fused_interp_bwd",
         # whole gradient table written once
         n_bytes=tri_id.numel() * 4 + n_fg * n_cot * 4 + n_faces * C * 4
                 + B * F * C * 4,
-        n_flops=n_fg * K2B_FLOPS_PER_FG_PIXEL, split=True,
+        n_flops=n_fg * K2B_FLOPS_PER_FG_PIXEL,
         note=f"the train step's launch: cotangents of {have} ({n_cot} of "
              f"{N_FIXED_OUT - 1 + nf} channels), worst row rel err "
              f"{rel_step:.3g}; random cotangent on every group: {rel_rand:.3g}; "
@@ -436,91 +601,32 @@ def check_k2b(captured, name="K2b fused_interp_bwd",
              f"{n_faces} faces")
 
 
-def check_k4(flat1, idx, wgt, tri_id):
-    """K4 against scatter_taps_plain (dflat, 1e-5 * max|ref|) and
-    tap_weight_grad_plain (d_wgt, 1e-5 absolute)."""
-    from vhap_tpu_torch.ops.texture_fetch import (scatter_taps_plain,
-                                                  tap_weight_grad_plain,
-                                                  weighted_fetch_bwd)
-    B, K, P = idx.shape
-    N = flat1.shape[0]
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    fg = (tri_id > 0).reshape(B, P, 1)
-    g = torch.randn((B, P, 3), generator=gen, device="cuda") * fg
-    dflat_k, dw_k = weighted_fetch_bwd(flat1, idx, wgt, g)
-    dflat_p = scatter_taps_plain(idx, wgt, g, N)
-    dw_p = tap_weight_grad_plain(flat1, idx, g)
-    err = float((dflat_k - dflat_p).abs().max())
-    scale = float(dflat_p.abs().max())
-    err_w = float((dw_k - dw_p).abs().max())
-    if not (err <= 1e-5 * scale and err_w <= 1e-5):
-        raise RuntimeError(f"K4: dflat error {err} over 1e-5 * {scale}, or "
-                           f"d_wgt error {err_w} over 1e-5")
-    live_px = fg.reshape(B, 1, P)
-    live = (wgt != 0) & live_px
-    n_live_px = int(live_px.sum())
-    n_taps = int(live.sum())
-    n_texels = int(torch.unique(idx[live_px.expand(B, K, P)]).numel())
-    idx_flat = idx.reshape(-1).long()
-    vals = (wgt[..., None] * g[:, None]).reshape(-1, 3)   # formed untimed
-    return dict(
-        name="K4 texel_scatter", source="vhap_tpu_torch/csrc/texture_scatter.cu",
-        replaces="vhap_tpu/ops/texture_grad_pallas.py:338", max_abs_err=err,
-        max_abs_err_d_wgt=err_w,
-        kernel=lambda: weighted_fetch_bwd(flat1, idx, wgt, g),
-        plain=lambda: (scatter_taps_plain(idx, wgt, g, N),
-                       tap_weight_grad_plain(flat1, idx, g)),
-        library=lambda: torch.zeros((N, 3), device="cuda").index_add_(
-            0, idx_flat, vals),
-        # g of every pixel; weight and index of every tap of a pixel with a
-        # cotangent; each texel those taps touch read once; d_wgt and the
-        # whole dflat written once
-        n_bytes=B * P * 12 + n_live_px * K * 8 + n_texels * 12
-                + B * K * P * 4 + N * 12,
-        n_flops=n_live_px * K * K4_FLOPS_PER_LIVE_PIXEL_TAP
-                + n_taps * K4_FLOPS_PER_LIVE_TAP,
-        note=f"dflat abs err {err:.3g} (max|ref| {scale:.3g}), d_wgt abs err "
-             f"{err_w:.3g}; {n_taps} live taps of {n_live_px} pixels on "
-             f"{n_texels} texels ({n_taps / max(n_texels, 1):.1f} taps per "
-             f"texel); library: index_add_ of all {B * K * P} taps, vals = "
-             f"wgt * g formed before the timed region")
-
-
-def device_split(fn, reps: int = 20):
-    """Device ms per call of fn() by device op name (torch.profiler over
-    `reps` calls, after one warm-up call)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {ev.key[:48]: ev.self_device_time_total / 1e3 / reps
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA}
-
-
 def kernel_row(r, launches):
-    """Time one check's kernel, plain version and library call; the JSON
-    row of the kernels line."""
-    if r.get("split"):
-        log(f"[split] {r['name']}: one timed call's device ms by op: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in device_split(r["kernel"]).items()))
+    """Time one check's kernel (device ms from torch.profiler, and the
+    wrapper's CUDA-event ms), plain version and library call; the JSON row
+    of the kernels line. The share of the bound is taken from the device
+    ms."""
+    split = device_split(r["kernel"])
+    dev_ms = sum(split.values()) if split else None
     ms, plain_ms = cuda_ms(r["kernel"]), cuda_ms(r["plain"])
     lib_ms = cuda_ms(r["library"]) if r.get("library") else None
     b_ms, b_by = bound(r["n_bytes"], r["n_flops"])
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-    log(f"[kernel] {r['name']}: {r['note']}; kernel {ms:.4f} ms (previous "
-        f"kernels, a constant: {PRIOR_MS.get(r['name'])} ms), plain "
+    dev = ("not measured (the profiler recorded no device op)" if dev_ms is None
+           else f"{dev_ms:.4f} ms ({b_ms / dev_ms:.1%} of the bound) = "
+           + " + ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    log(f"[kernel] {r['name']}: {r['note']}; device {dev}; wrapper {ms:.4f} ms "
+        f"(previous kernels, a constant: {PRIOR_MS.get(r['name'])} ms), plain "
         f"{plain_ms:.4f} ms, library {lib}, bound {b_ms:.4f} ms by {b_by} "
         f"({r['n_bytes'] / 1e6:.1f} MB, {r['n_flops'] / 1e9:.3f} GFLOP)")
     row = {
         "name": r["name"], "route": "cuda", "source": r["source"],
         "replaces": r["replaces"], "launches": launches,
         "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    for extra in ("max_rel_err", "max_abs_err_d_wgt", "max_abs_err_vs_k4"):
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "device_ms": dev_ms}
+    for extra in ("max_rel_err", "max_abs_err_taps", "max_rel_err_d_uv",
+                  "max_abs_err_vs_k4", "pixels_other_taps"):
         if extra in r:
             row[extra] = r[extra]
     return row
@@ -548,7 +654,7 @@ def capture_k2b():
 def check_train_step(ts, kernels, per_step):
     """Phase 6: one train step through the kernels, disturbance on. Also
     returns K2b's arguments in it (table, tri_id, per-group cotangents,
-    nf), for phase 7."""
+    nf) and the fused sampler's (capture_sampler), for phase 7."""
     s = ts.eval
     init, step = ts.make_step(True, True)
     params = s.params
@@ -556,7 +662,7 @@ def check_train_step(ts, kernels, per_step):
     gen = ts.generator(0)
     for k in kernels.values():
         k.launches = 0
-    with capture_k2b() as captured:
+    with capture_k2b() as captured, capture_sampler() as sampled:
         new, state, E, logs = step(params, opt_state, s.batch, gen)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
@@ -586,7 +692,7 @@ def check_train_step(ts, kernels, per_step):
         f"{sorted(set(params) - ts.opt_leaves)} bit-identical, gradients finite")
     if len(captured) != 1:
         raise RuntimeError(f"K2b's wrapper ran {len(captured)} times in the step")
-    return launches, captured[0]
+    return launches, captured[0], sampled
 
 
 def check_train_plain(ts):
@@ -696,15 +802,17 @@ def check_vis_path(vs, kernels):
     cot = torch.randn((B, H, W, 4), generator=gen, device="cuda")
     for k in kernels.values():
         k.launches = 0
-    out = vs.render(True)
-    verts = vs.verts.clone().requires_grad_(True)
-    tex = vs.tex.clone().requires_grad_(True)
-    gv, gt = torch.autograd.grad(vs.grad_loss(verts, tex, cot, True), (verts, tex))
+    with capture_sampler() as sampled:
+        out = vs.render(True)
+        verts = vs.verts.clone().requires_grad_(True)
+        tex = vs.tex.clone().requires_grad_(True)
+        gv, gt = torch.autograd.grad(vs.grad_loss(verts, tex, cot, True),
+                                     (verts, tex))
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
     log(f"[vis] launches in one vis render + its gradient: {launches}")
     for name in ("K5 visibility", "K6f plane_gather", "K6b plane_gather_bwd",
-                 "K3 texel_fetch", "K4 texel_scatter"):
+                 "K3 trilinear_sample", "K4 trilinear_sample_bwd"):
         if launches[name] < 1:
             raise RuntimeError(f"{name} was not launched on the vis path")
     for key, shape in (("rgba", (B, H, W, 4)), ("albedo", (B, H, W, 3)),
@@ -720,7 +828,8 @@ def check_vis_path(vs, kernels):
                            f"gradients finite and nonzero?")
     log(f"[vis] fg share {fg_share:.4f}; max|g| verts {float(gv.abs().max()):.6g} "
         f"tex {float(gt.abs().max()):.6g}")
-    return launches, cot
+    check_sampler_launches("the vis gradient's launch", sampled, 2, 1)
+    return launches, cot, sampled
 
 
 def check_k5(vs):
@@ -766,7 +875,7 @@ def check_k5(vs):
         # the id map written; the candidates its valid faces test
         n_bytes=(n_valid * K1_ROW_FIELDS_READ + (n_rows - n_valid)) * 4
                 + clip.shape[0] * H * W * 4,
-        n_flops=k1_candidates(setup, H, W) * K1_FLOPS_PER_CANDIDATE, split=True,
+        n_flops=k1_candidates(setup, H, W) * K1_FLOPS_PER_CANDIDATE,
         note="rasterize() through K1's kernel, timed at the vis inputs; "
              + "; ".join(notes))
 
@@ -875,14 +984,12 @@ def check_k6(vs, tri_id):
     return fwd, bwd
 
 
-def check_vis_plain(vs, cot):
+def check_vis_plain(vs, cot, sampled):
     """Phase 13-14: the vis render and its gradient through the kernels
     against the plain versions (use_kernels=False): every output within
-    1e-5 absolute, each gradient within 1e-3 * max|g|; K3 at the render's
-    unmasked texture call; the render's time."""
-    from vhap_tpu_torch.ops.rasterize import interpolate, rasterize
-    from vhap_tpu_torch.ops.texture import build_mip_pyramid, trilinear_taps
-    from vhap_tpu_torch.ops.texture_fetch import weighted_fetch, weighted_fetch_plain
+    1e-5 absolute, each gradient within 1e-3 * max|g|; K3 and K4 at the
+    render's own (unmasked) sampler launch from phase 9; the render's
+    time."""
     out_k, out_p = vs.render(True), vs.render(False)
     errs = {k: float((out_k[k] - out_p[k]).abs().max()) for k in out_k}
     if not all(e <= 1e-5 for e in errs.values()):
@@ -903,23 +1010,12 @@ def check_vis_plain(vs, cot):
         f"{k} {v:.3g}" for k, v in errs.items()) + "; gradient err / max|g| "
         + ", ".join(f"{k} {v:.3g}" for k, v in g_err.items()))
 
-    # K3 at this call: every pixel fetches (no coverage mask)
-    head = vs.eval.head
-    with torch.no_grad():
-        rast, rast_db, _ = rasterize(cam_clip(vs), head.faces, vs.image_size)
-        texc, texd = interpolate(vs.verts_uv[None], rast, head.textures_idx,
-                                 rast_db=rast_db, diff_attrs="all")
-        tex = vs.tex.permute(0, 2, 3, 1)
-        flat, offsets, sizes = build_mip_pyramid(tex)
-        idx, wgt = trilinear_taps(tex.shape[1:3], offsets, sizes, texc, texd)
-        flat1, idx, wgt = flat[0].contiguous(), idx.contiguous(), wgt.contiguous()
-        err3 = float((weighted_fetch(flat1, idx, wgt)
-                      - weighted_fetch_plain(flat1, idx, wgt)).abs().max())
-    if not err3 <= 1e-5:
-        raise RuntimeError(f"K3 at the vis call: error {err3}")
-    log(f"[K3] at the vis render's call ({int((wgt != 0).sum())} live taps of "
-        f"{wgt.numel()}): abs err {err3:.3g}, kernel "
-        f"{cuda_ms(lambda: weighted_fetch(flat1, idx, wgt)):.4f} ms")
+    # K3 at the render's own launch: every pixel fetches (no coverage mask)
+    # K3 and K4 at the render's own launch: every pixel fetches (no coverage
+    # mask); K4 for the cotangent the vis gradient's sampler took (phase 9),
+    # which composites the background away
+    check_sampler("the vis render's launch (no mask)", sampled["fwd"][0],
+                  g=sampled["bwd"][0][6])
 
     def render_ms(use_kernels, warmup, reps):
         times = []
@@ -1005,11 +1101,12 @@ def check_dense_path(ts, kernels):
     eval_dense, train_dense = dense_config_energies(ts)
     for k in kernels.values():
         k.launches = 0
-    Ed, (ld, ad) = run_step(eval_dense, s.params, s.batch)
+    with capture_sampler() as eval_sampled:
+        Ed, (ld, ad) = run_step(eval_dense, s.params, s.batch)
     eval_launches = {name: k.launches for name, k in kernels.items()}
     for k in kernels.values():
         k.launches = 0
-    with capture_k2b() as k2b_args:
+    with capture_k2b() as k2b_args, capture_sampler() as train_sampled:
         Etd, ltd, gd = loss_and_grads(train_dense, s.params, ts.opt_leaves,
                                       s.batch, ts.generator(8))
     torch.cuda.synchronize()
@@ -1017,7 +1114,7 @@ def check_dense_path(ts, kernels):
     log(f"[dense] launches in one dense eval step: {eval_launches}; in one "
         f"dense train step: {train_launches}")
     for name, n in eval_launches.items():
-        want = 0 if name in ("K2b fused_interp_bwd", "K4 texel_scatter") else 1
+        want = 0 if name in ("K2b fused_interp_bwd", "K4 trilinear_sample_bwd") else 1
         if n != want:
             raise RuntimeError(f"{name} launched {n} times in the dense eval "
                                f"step, expected {want}")
@@ -1025,6 +1122,8 @@ def check_dense_path(ts, kernels):
         if n != 1:
             raise RuntimeError(f"{name} launched {n} times in the dense train "
                                f"step, expected 1")
+    check_sampler_launches("the dense eval step's launch", eval_sampled, 1, 0)
+    check_sampler_launches("the dense train step's launch", train_sampled, 1, 1)
     # the flat configuration on the same inputs and generator seed, twice:
     # its two runs give the noise floor of the atomics' order (K2b, K4 and
     # the index_add_ of the vertex normals and of autograd's index backward)
@@ -1062,20 +1161,24 @@ def check_dense_path(ts, kernels):
     return eval_launches, train_launches, k2b_args[0]
 
 
-def check_k8(flat1, idx, wgt, tri_id, kernels):
-    """Phase 17: K8 (scatter_taps) on the train step's own taps, vals =
-    wgt * g for a seeded cotangent on the foreground: launched once with the
-    counts zeroed; within 1e-5 * max|ref| of a float64 index_add_ and of
-    K4's dflat on the same taps."""
+def check_k8(args, kernels):
+    """Phase 17: K8 (scatter_taps) on the train step's own taps (formed by
+    trilinear_taps from the step's sampler arguments), vals = wgt * g for
+    the step's own cotangent: launched once with the counts zeroed; within
+    1e-5 * max|ref| of a float64 index_add_ and of K4's dflat for the same
+    uv, uv_da and g."""
     from vhap_tpu_torch.ops.texture_fetch import (scatter_taps,
                                                   scatter_vals_plain,
-                                                  weighted_fetch_bwd)
-    B, K, P = idx.shape
+                                                  trilinear_sample_bwd,
+                                                  trilinear_taps)
+    flat1, uv, uv_da, mask, offsets, sizes, g = args
+    size = tuple(sizes[0])
     N = flat1.shape[0]
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    fg = (tri_id > 0).reshape(B, P, 1)
-    g = torch.randn((B, P, 3), generator=gen, device="cuda") * fg
+    with torch.no_grad():
+        idx, wgt = trilinear_taps(size, offsets, sizes, uv, uv_da, mask)
+    B, K, P = idx.shape
     vals = (wgt[:, :, None, :] * g.permute(0, 2, 1)[:, None]).contiguous()
+    del wgt
     for k in kernels.values():
         k.launches = 0
     dflat, ovf = scatter_taps(idx, vals, N)
@@ -1086,9 +1189,11 @@ def check_k8(flat1, idx, wgt, tri_id, kernels):
     ref64 = scatter_vals_plain(idx, vals.double(), N)
     scale = float(ref64.abs().max())
     err = float((dflat.double() - ref64).abs().max())
-    dflat_k4, _ = weighted_fetch_bwd(flat1, idx, wgt, g)
+    dflat_k4 = trilinear_sample_bwd(flat1, size, offsets, sizes, uv, uv_da,
+                                    mask, g)[2]
     err_k4 = float((dflat - dflat_k4).abs().max())
     err_p32 = float((scatter_vals_plain(idx, vals, N).double() - ref64).abs().max())
+    del ref64
     if not (err <= 1e-5 * scale and err_k4 <= 1e-5 * float(dflat_k4.abs().max())):
         raise RuntimeError(f"K8: error {err} against float64 (max|ref| {scale}), "
                            f"{err_k4} against K4's dflat")
@@ -1111,9 +1216,10 @@ def check_k8(flat1, idx, wgt, tri_id, kernels):
         # the index of each live tap, the whole dflat written once
         n_bytes=vals.numel() * 4 + n_live * 4 + N * 12,
         n_flops=float(n_live * 3),
-        note=f"abs err {err:.3g} against float64 index_add_ (max|ref| "
-             f"{scale:.3g}; float32 index_add_ {err_p32:.3g}), {err_k4:.3g} "
-             f"against K4's dflat; {n_live} live taps on {n_texels} texels; "
+        note=f"the train step's taps and cotangent: abs err {err:.3g} against "
+             f"float64 index_add_ (max|ref| {scale:.3g}; float32 index_add_ "
+             f"{err_p32:.3g}), {err_k4:.3g} against K4's dflat for the same uv, "
+             f"uv_da and g; {n_live} live taps on {n_texels} texels; "
              f"library: float32 index_add_ of all {B * K * P} taps, rows "
              f"permuted before the timed region")
 
@@ -1227,7 +1333,8 @@ def check_tracker_loop(kernels, single_step_ms):
         tr.eval_calls = 0
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        tr.optimize()
+        with capture_sampler(keep_last=True) as sampled:
+            tr.optimize()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         peak = torch.cuda.max_memory_allocated()
@@ -1240,12 +1347,15 @@ def check_tracker_loop(kernels, single_step_ms):
             f"steps by stage {dict(tr.steps_by_stage)}; {evals} evaluation "
             f"renders; launches {launches}")
         want = {"K1 visibility": rgb_steps + evals, "K2f fused_interp": rgb_steps + evals,
-                "K3 texel_fetch": rgb_steps + evals, "K2b fused_interp_bwd": rgb_steps,
-                "K4 texel_scatter": rgb_steps}
+                "K3 trilinear_sample": rgb_steps + evals,
+                "K2b fused_interp_bwd": rgb_steps, "K4 trilinear_sample_bwd": rgb_steps}
         for name, n in want.items():
             if launches[name] != n:
                 raise RuntimeError(f"{name} launched {launches[name]} times in the "
                                    f"tracker loop, expected {n}")
+        args = sampled["bwd"][0]
+        check_sampler("the tracker loop's last rgb step", args[:6], g=args[6])
+        del sampled, args
         if not (np.isfinite(E1) and E1 < E0):
             raise RuntimeError(f"batch-0 eval energy did not fall: {E0} -> {E1}")
         ckpt = sorted(tr.out_dir.glob("tracked_flame_params_*.npz"))[-1]
@@ -1332,7 +1442,7 @@ def main() -> int:
     from vhap_tpu_torch.ops import camera as cam
     from vhap_tpu_torch.ops.interp import FUSED_INTERP, FUSED_INTERP_BWD
     from vhap_tpu_torch.ops.rasterize import VISIBILITY
-    from vhap_tpu_torch.ops.texture_fetch import WEIGHTED_FETCH, WEIGHTED_FETCH_BWD
+    from vhap_tpu_torch.ops.texture_fetch import TRILINEAR_SAMPLE, TRILINEAR_SAMPLE_BWD
     from vhap_tpu_torch.tools.train_slice import build_train_slice
     from vhap_tpu_torch.tracker.energy import fill_cam_params
 
@@ -1351,12 +1461,13 @@ def main() -> int:
 
     # ---- 3. the eval path: one eval step through the kernels ----
     kernels = {"K1 visibility": VISIBILITY, "K2f fused_interp": FUSED_INTERP,
-               "K3 texel_fetch": WEIGHTED_FETCH}
+               "K3 trilinear_sample": TRILINEAR_SAMPLE}
     per_step = {name: 1 for name in kernels}
     eval_kernels = s.make_energy(True)
     for k in kernels.values():
         k.launches = 0
-    E, (logs, aux) = run_step(eval_kernels, s.params, s.batch)
+    with capture_sampler() as eval_sampled:
+        E, (logs, aux) = run_step(eval_kernels, s.params, s.batch)
     launches = {name: k.launches for name, k in kernels.items()}
     log(f"[main] launches in one eval step: {launches}")
     for name, n in launches.items():
@@ -1380,8 +1491,8 @@ def main() -> int:
     verts = aux["verts"]
     verts_clip = cam.camera_to_clip(cam.world_to_camera(verts, RT), K, (H, W))
     tri_id, r1 = check_k1(s, verts_clip)
-    chans, r2 = check_k2(s, verts_clip, verts, tri_id)
-    r3 = check_k3(aux["albedo_map"], chans, tri_id)
+    _, r2 = check_k2(s, verts_clip, verts, tri_id)
+    r3, _ = check_sampler_launches("the eval step's launch", eval_sampled, 1, 0)
 
     # ---- 5. the whole step through the plain versions; step timing ----
     eval_plain = s.make_energy(False)
@@ -1394,7 +1505,7 @@ def main() -> int:
         raise RuntimeError(f"eval energy through the kernels disagrees with the "
                            f"plain path: E rel {rel}, photo rel {rel_photo}, lmk "
                            f"{float(logs['lmk'])} vs {float(logs_p['lmk'])}")
-    lap("3-4 (eval path, K1 K2f K3)")
+    lap("3-4 (eval path, K1 K2f K3 K4)")
     log(f"[energy] kernels vs plain: E_total rel {rel:.3g}, photo rel "
         f"{rel_photo:.3g}, lmk equal")
 
@@ -1416,13 +1527,12 @@ def main() -> int:
 
     # ---- 6. the train path: one train step through the kernels ----
     train_kernels = dict(kernels, **{"K2b fused_interp_bwd": FUSED_INTERP_BWD,
-                                     "K4 texel_scatter": WEIGHTED_FETCH_BWD})
-    train_launches, k2b_args = check_train_step(ts, train_kernels, 1)
+                                     "K4 trilinear_sample_bwd": TRILINEAR_SAMPLE_BWD})
+    train_launches, k2b_args, train_sampled = check_train_step(ts, train_kernels, 1)
 
     # ---- 7. K2b and K4 against their plain versions; 4 and 7 timed ----
-    tri_t, flat1, idx, wgt = step_inputs(ts, s.params)
     r4 = check_k2b(k2b_args)
-    r5 = check_k4(flat1, idx, wgt, tri_t)
+    _, r5 = check_sampler_launches("the train step's launch", train_sampled, 1, 1)
     rows_out = [kernel_row(r, train_launches[r["name"]])
                 for r in (r1, r2, r3, r4, r5)]
 
@@ -1439,10 +1549,11 @@ def main() -> int:
     vs = vis_slice_from_eval(s)
     vis_kernels = {"K5 visibility": VISIBILITY, "K6f plane_gather": PLANE_GATHER,
                    "K6b plane_gather_bwd": PLANE_GATHER_BWD,
-                   "K3 texel_fetch": WEIGHTED_FETCH, "K4 texel_scatter": WEIGHTED_FETCH_BWD,
+                   "K3 trilinear_sample": TRILINEAR_SAMPLE,
+                   "K4 trilinear_sample_bwd": TRILINEAR_SAMPLE_BWD,
                    "K2f fused_interp": FUSED_INTERP,
                    "K2b fused_interp_bwd": FUSED_INTERP_BWD}
-    vis_launches, cot = check_vis_path(vs, vis_kernels)
+    vis_launches, cot, vis_sampled = check_vis_path(vs, vis_kernels)
 
     # ---- 10-12. K5 and K6 against their plain versions, timed ----
     tri_vis, r6 = check_k5(vs)
@@ -1450,7 +1561,8 @@ def main() -> int:
     rows_out += [kernel_row(r, vis_launches[r["name"]]) for r in (r6, r7, r8)]
 
     # ---- 13-14. the vis render and gradient vs the plain path; timing ----
-    check_vis_plain(vs, cot)
+    check_vis_plain(vs, cot, vis_sampled)
+    del vis_sampled
     lap("9-14 (vis path, K5 K6)")
 
     # ---- 15. the entry points ----
@@ -1472,14 +1584,16 @@ def main() -> int:
     lap("16 (dense configuration, K7)")
 
     # ---- 17. K8: scatter_taps on the train step's taps ----
-    k8_launches, r11 = check_k8(flat1, idx, wgt, tri_t,
+    k8_launches, r11 = check_k8(train_sampled["bwd"][0],
                                 {"K8 scatter_taps": SCATTER_VALS})
     rows_out.append(kernel_row(r11, k8_launches["K8 scatter_taps"]))
     lap("17 (K8)")
 
-    # ---- 18. K1 and K2b on adversarial scenes ----
+    # ---- 18. K1 and K2b on adversarial scenes; K3 and K4 on adversarial uvs ----
     check_adversarial()
-    lap("18 (adversarial scenes, K1 K2b)")
+    del train_sampled
+    check_adversarial_sampler((B, (H, W)), s.cfg.model.tex_resolution)
+    lap("18 (adversarial scenes and uvs, K1 K2b K3 K4)")
 
     # ---- 19. the tracker loop; 20. GT recovery ----
     check_tracker_loop(train_kernels, single_step_ms)

@@ -22,7 +22,7 @@ from vhap_tpu_torch.ops.interp import (GROUPS, N_FIXED_IN, N_FIXED_OUT,
                                        join_channels)
 from vhap_tpu_torch.ops.texture_fetch import (scatter_taps_plain,
                                               tap_weight_grad_plain,
-                                              weighted_fetch_bwd,
+                                              trilinear_taps,
                                               weighted_fetch_plain)
 from test_torch_raster import _bf16_hi_lo_exact
 
@@ -165,9 +165,9 @@ def _fetch_inputs(seed, B=2, Hi=32, Wi=128, T=64):
     da = (rng.normal(size=(B, Hi, Wi, 4)) * scale).astype(np.float32)
     mask = rng.uniform(size=(B, Hi, Wi)) < 0.7
     flat, offsets, sizes = ttex.build_mip_pyramid(torch.as_tensor(tex))
-    idx, wgt = ttex.trilinear_taps(tex.shape[1:3], offsets, sizes,
-                                   torch.as_tensor(uv), torch.as_tensor(da),
-                                   torch.as_tensor(mask))
+    idx, wgt = trilinear_taps(tex.shape[1:3], offsets, sizes,
+                              torch.as_tensor(uv), torch.as_tensor(da),
+                              torch.as_tensor(mask))
     g = rng.normal(size=(B, Hi * Wi, 3)).astype(np.float32)
     g[:, ::7] = 0.0
     return flat[0], offsets, idx, wgt, torch.as_tensor(g)
@@ -208,12 +208,14 @@ def test_plain_scatter_and_weight_grad_match_jax(impl):
 
 
 def test_fetch_backward_through_autograd_matches_k4_plain():
-    """The fetch's autograd backward on the CPU equals K4's plain pair, and
-    the K4 wrapper takes them for CPU tensors."""
+    """The fetch's autograd backward on the CPU equals the plain pair that
+    K4's plain version (trilinear_sample_bwd_plain) builds on: the texel
+    scatter and each tap's texel . g."""
     flat1, _, idx, wgt, g = _fetch_inputs(8)
     fl = flat1.clone().requires_grad_(True)
     w = wgt.clone().requires_grad_(True)
     d_fl, d_w = torch.autograd.grad(weighted_fetch_plain(fl, idx, w), (fl, w), g)
-    k_fl, k_w = weighted_fetch_bwd(flat1, idx, wgt, g)
+    k_fl = scatter_taps_plain(idx, wgt, g, flat1.shape[0])
+    k_w = tap_weight_grad_plain(flat1, idx, g)
     np.testing.assert_allclose(k_fl.numpy(), d_fl.numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(k_w.numpy(), d_w.numpy(), rtol=1e-6, atol=1e-6)

@@ -84,16 +84,16 @@ def test_kernel_wrappers_take_no_cpu_fallback():
     never compute a CPU tensor's result themselves."""
     from vhap_tpu_torch.ops.interp import _FusedInterp
     from vhap_tpu_torch.ops.rasterize import SETUP_ROW, _Visibility
-    from vhap_tpu_torch.ops.texture_fetch import _WeightedFetch
+    from vhap_tpu_torch.ops.texture_fetch import _TrilinearSample
     with pytest.raises(ValueError, match="CUDA tensor"):
         _Visibility.apply(torch.zeros(1, 4, SETUP_ROW), 8, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         _FusedInterp.apply(torch.zeros(1, 36, 4),
                            torch.zeros(1, 8, 8, dtype=torch.int32), 0)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        _WeightedFetch.apply(torch.zeros(16, 3),
-                             torch.zeros(1, 8, 4, dtype=torch.int32),
-                             torch.zeros(1, 8, 4))
+        _TrilinearSample.apply(torch.zeros(21, 3), torch.zeros(1, 2, 2, 2),
+                               torch.zeros(1, 2, 2, 4), None, (0, 16, 20),
+                               ((4, 4), (2, 2), (1, 1)))
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])

@@ -74,39 +74,86 @@ def test_fused_interp_kernel_matches_plain(dev):
     assert torch.all(got[~fg.expand_as(got)] == 0)
 
 
-def test_weighted_fetch_kernel_matches_plain(dev):
-    from vhap_tpu_torch.ops.texture_fetch import (WEIGHTED_FETCH, weighted_fetch,
-                                                  weighted_fetch_plain)
-    g = torch.Generator(device=dev).manual_seed(1)
-    N, B, K, P = 5461, 2, 8, 4096
-    flat = torch.rand(N, 3, device=dev, generator=g)
-    idx = torch.randint(0, N, (B, K, P), device=dev, generator=g, dtype=torch.int32)
-    wgt = torch.rand(B, K, P, device=dev, generator=g)
-    wgt[:, :, ::3] = 0.0
-    n0 = WEIGHTED_FETCH.launches
-    got = weighted_fetch(flat, idx, wgt)
-    ref = weighted_fetch_plain(flat, idx, wgt)
+def _sampler_inputs(dev, T, seed, planes, with_mask):
+    """tools/texture_cases.py's adversarial inputs on the card; with
+    planes, uv and uv_da are channel slices of one (B, 22, H, W) buffer, as
+    the fused interpolation returns them."""
+    from vhap_tpu_torch.ops.texture import build_mip_pyramid
+    from vhap_tpu_torch.tools import texture_cases
+    c = texture_cases.build(2, 64, 96, T, seed)
+    flat, offsets, sizes = build_mip_pyramid(torch.as_tensor(c["tex"], device=dev))
+    uv, da = (torch.as_tensor(c[k], device=dev) for k in ("uv", "uv_da"))
+    if planes:
+        buf = torch.zeros((uv.shape[0], 22) + uv.shape[1:3], device=dev)
+        buf[:, 1:3], buf[:, 3:7] = uv.permute(0, 3, 1, 2), da.permute(0, 3, 1, 2)
+        uv, da = buf[:, 1:3].permute(0, 2, 3, 1), buf[:, 3:7].permute(0, 2, 3, 1)
+    mask = torch.as_tensor(c["mask"], device=dev) if with_mask else None
+    g = torch.as_tensor(c["g"], device=dev)
+    return flat[0].contiguous(), (T, T), offsets, sizes, uv, da, mask, g
+
+
+SAMPLER_CASES = [(64, 0, True, True), (48, 1, False, True), (256, 2, True, False)]
+
+
+@pytest.mark.parametrize("T,seed,planes,with_mask", SAMPLER_CASES)
+def test_trilinear_sample_kernel_matches_plain(dev, T, seed, planes, with_mask):
+    """K3 (the fused sample) within 1e-5 of trilinear_sample_plain on every
+    pixel, and the taps its code forms identical to trilinear_taps'
+    (level and texel choice, on integer lods, lod L - 1, ties, texel
+    centres, uvs on and beyond [0, 1]); masked pixels 0."""
+    from vhap_tpu_torch.ops.texture_fetch import (TRILINEAR_SAMPLE, trilinear_sample,
+                                                  trilinear_sample_plain,
+                                                  trilinear_taps, trilinear_taps_card)
+    flat1, size, offsets, sizes, uv, da, mask, _ = _sampler_inputs(
+        dev, T, seed, planes, with_mask)
+    n0 = TRILINEAR_SAMPLE.launches
+    got = trilinear_sample(flat1, size, offsets, sizes, uv, da, mask)
+    ref = trilinear_sample_plain(flat1, size, offsets, sizes, uv, da, mask)
+    idx, wgt = trilinear_taps_card(size, offsets, sizes, uv, da, mask)
+    ref_idx, ref_wgt = trilinear_taps(size, offsets, sizes, uv, da, mask)
     torch.cuda.synchronize()
-    assert WEIGHTED_FETCH.launches == n0 + 1
+    assert TRILINEAR_SAMPLE.launches == n0 + 1
     assert float((got - ref).abs().max()) <= 1e-5
+    assert torch.equal(idx, ref_idx)
+    assert float((wgt - ref_wgt).abs().max()) <= 1e-6
+    if mask is not None:
+        assert bool((got.reshape(mask.shape + (3,))[~mask] == 0).all())
 
 
-def test_backward_kernels_raise_until_ported(dev):
-    """The fetch's backward runs (K4 since slice 2): texel and weight
-    gradients equal their plain versions', through autograd."""
-    from vhap_tpu_torch.ops.texture_fetch import (WEIGHTED_FETCH_BWD,
-                                                  weighted_fetch,
-                                                  weighted_fetch_plain)
-    flat = torch.rand(64, 3, device=dev, requires_grad=True)
-    idx = torch.randint(0, 64, (1, 8, 32), dtype=torch.int32, device=dev)
-    wgt = torch.rand(1, 8, 32, device=dev, requires_grad=True)
-    n0 = WEIGHTED_FETCH_BWD.launches
-    gk = torch.autograd.grad(weighted_fetch(flat, idx, wgt).sum(), (flat, wgt))
-    gp = torch.autograd.grad(weighted_fetch_plain(flat, idx, wgt).sum(), (flat, wgt))
+@pytest.mark.parametrize("T,seed,planes,with_mask", SAMPLER_CASES)
+def test_trilinear_sample_bwd_kernel_matches_plain(dev, T, seed, planes, with_mask):
+    """K4 alone and through autograd: d_uv and d_uv_da within 1e-4, dflat
+    within 1e-5 of max|ref| per channel, the reference
+    trilinear_sample_bwd_plain for a float64 texture and cotangent (K4 sums
+    in float64 where float32 cancels, and float32 atomics add in any
+    order); plane-layout gradients for plane inputs; zero-cotangent and
+    masked pixels take 0."""
+    from vhap_tpu_torch.ops.texture_fetch import (TRILINEAR_SAMPLE_BWD,
+                                                  trilinear_sample,
+                                                  trilinear_sample_bwd,
+                                                  trilinear_sample_bwd_plain)
+    flat1, size, offsets, sizes, uv, da, mask, g = _sampler_inputs(
+        dev, T, seed, planes, with_mask)
+    n0 = TRILINEAR_SAMPLE_BWD.launches
+    alone = trilinear_sample_bwd(flat1, size, offsets, sizes, uv, da, mask, g)
+    leaves = [x.clone().requires_grad_(True) for x in (uv, da, flat1)]
+    out = trilinear_sample(leaves[2], size, offsets, sizes, leaves[0], leaves[1], mask)
+    via_autograd = torch.autograd.grad(out, leaves, g)
+    refs = trilinear_sample_bwd_plain(flat1.double(), size, offsets, sizes, uv,
+                                      da, mask, g.double())
     torch.cuda.synchronize()
-    assert WEIGHTED_FETCH_BWD.launches == n0 + 1
-    for a, b in zip(gk, gp):
-        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert TRILINEAR_SAMPLE_BWD.launches == n0 + 2
+    for grad in alone[:2]:
+        assert (grad.stride(3) > grad.stride(2)) == planes
+    for got in (alone, via_autograd):
+        for x, ref, tol in zip(got, refs, (1e-4, 1e-4, 1e-5)):
+            scale = ref.reshape(-1, ref.shape[-1]).abs().amax(0)
+            err = (x.double() - ref).reshape(-1, ref.shape[-1]).abs().amax(0)
+            assert bool((scale > 0).all()) and bool((err <= tol * scale).all())
+    live = (g.abs().sum(-1) > 0).reshape(uv.shape[:3])
+    if mask is not None:
+        live &= mask
+    assert bool((alone[0][~live] == 0).all()) and bool((alone[1][~live] == 0).all())
 
 
 def _interp_scene(dev, nf=2, seed=3):
@@ -151,36 +198,18 @@ def test_fused_interp_bwd_kernel_matches_plain(dev, nf, seed):
         assert bool(((x - ref).abs().amax(dim=(0, 2)) <= 1e-4 * row_ref).all())
 
 
-def test_weighted_fetch_bwd_kernel_matches_plain(dev):
-    from vhap_tpu_torch.ops.texture_fetch import (WEIGHTED_FETCH_BWD,
-                                                  scatter_taps_plain,
-                                                  tap_weight_grad_plain,
-                                                  weighted_fetch_bwd)
-    g = torch.Generator(device=dev).manual_seed(5)
-    N, B, K, P = 5461, 2, 8, 4096
-    flat = torch.rand(N, 3, device=dev, generator=g)
-    # few texels: heavy atomic collisions, as on the head
-    idx = torch.randint(0, 97, (B, K, P), device=dev, generator=g, dtype=torch.int32)
-    wgt = torch.rand(B, K, P, device=dev, generator=g)
-    wgt[:, :, ::3] = 0.0
-    cot = torch.randn(B, P, 3, device=dev, generator=g)
-    cot[:, ::5] = 0.0                     # pixels without a cotangent
-    n0 = WEIGHTED_FETCH_BWD.launches
-    dflat, d_wgt = weighted_fetch_bwd(flat, idx, wgt, cot)
-    ref = scatter_taps_plain(idx, wgt, cot, N)
-    ref_w = tap_weight_grad_plain(flat, idx, cot)
-    torch.cuda.synchronize()
-    assert WEIGHTED_FETCH_BWD.launches == n0 + 1
-    assert float((dflat - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
-    assert float((d_wgt - ref_w).abs().max()) <= 1e-5
-
-
 def test_wrappers_reject_bad_inputs(dev):
-    from vhap_tpu_torch.ops.texture_fetch import weighted_fetch
-    flat = torch.rand(64, 3, device=dev)
-    idx = torch.zeros(1, 8, 32, dtype=torch.int64, device=dev)
-    with pytest.raises(ValueError, match="int32"):
+    """The idx/wgt fetch is CPU-only (the card forms taps inside the fused
+    sampler); the sampler raises on a float64 uv."""
+    from vhap_tpu_torch.ops.texture_fetch import trilinear_sample, weighted_fetch
+    flat = torch.rand(21, 3, device=dev)
+    idx = torch.zeros(1, 8, 32, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="trilinear_sample"):
         weighted_fetch(flat, idx, torch.rand(1, 8, 32, device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        trilinear_sample(flat, (4, 4), (0, 16, 20), ((4, 4), (2, 2), (1, 1)),
+                         torch.rand(1, 2, 2, 2, device=dev, dtype=torch.float64),
+                         torch.rand(1, 2, 2, 4, device=dev))
 
 
 def test_eval_energy_kernels_match_plain(dev):
@@ -221,7 +250,7 @@ def test_train_step_kernels_match_plain(dev):
     off: energy terms and gradients through the kernels equal the plain
     path's; with the disturbance on, every kernel launches once a step."""
     from vhap_tpu_torch.ops.interp import FUSED_INTERP_BWD
-    from vhap_tpu_torch.ops.texture_fetch import WEIGHTED_FETCH_BWD
+    from vhap_tpu_torch.ops.texture_fetch import TRILINEAR_SAMPLE_BWD
     from vhap_tpu_torch.tools.train_slice import build_train_slice
     from vhap_tpu_torch.tracker.optim import loss_and_grads
     ts = build_train_slice(device=dev, batch_size=2, image_size=(64, 128),
@@ -236,11 +265,11 @@ def test_train_step_kernels_match_plain(dev):
     for k in gp:
         assert float((gk[k] - gp[k]).abs().max()) <= 1e-3 * float(gp[k].abs().max()), k
     init, step = ts.make_step(True, True)
-    n0 = (FUSED_INTERP_BWD.launches, WEIGHTED_FETCH_BWD.launches)
+    n0 = (FUSED_INTERP_BWD.launches, TRILINEAR_SAMPLE_BWD.launches)
     _, _, E, _ = step(s.params, init(s.params), s.batch, ts.generator(1))
     torch.cuda.synchronize()
     assert torch.isfinite(E)
-    assert (FUSED_INTERP_BWD.launches, WEIGHTED_FETCH_BWD.launches) == (n0[0] + 1, n0[1] + 1)
+    assert (FUSED_INTERP_BWD.launches, TRILINEAR_SAMPLE_BWD.launches) == (n0[0] + 1, n0[1] + 1)
 
 
 @pytest.mark.parametrize("table_batch,C,seed", [(2, 12, 0), (1, 3, 1), (2, 13, 2)])
@@ -296,7 +325,8 @@ def test_rasterize_uses_visibility_kernel_with_cull_off(dev):
 
 
 def test_render_rgba_vis_kernels_match_plain(dev):
-    """The vis render through K1, K6 and K3 equals the plain path."""
+    """The vis render through K1, K6 and K3 (the fused sample) equals the
+    plain path."""
     from vhap_tpu_torch.tools.vis_slice import build_vis_slice
     s = build_vis_slice(device=dev, batch_size=2, image_size=(64, 128),
                         tex_res=64, n_shape=20, n_expr=10)

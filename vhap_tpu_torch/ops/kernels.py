@@ -34,19 +34,21 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# visibility and interp must round every product and sum on its own, as
-# PyTorch's elementwise ops do, so that they reproduce the plain versions
-# bit for bit; interp's backward too, because its plane and 1/w rows are
+# visibility, interp and the trilinear sampler must round every product
+# and sum on its own, as PyTorch's elementwise ops do, so that they
+# reproduce the plain versions bit for bit (the sampler's lod and texel
+# coordinates are floored: one ulp moves a tap to the next level or
+# texel); interp's backward too, because its plane and 1/w rows are
 # ill-conditioned on sliver faces (contracting to FMA moves them by ~3e-4
-# of a row's largest gradient at the bench's shapes). The texel gather and
-# scatter may contract to FMA; the plane gather only copies and adds.
+# of a row's largest gradient at the bench's shapes). The plane gather
+# only copies and adds.
 SOURCES: Dict[str, List[str]] = {
     "errors.cu": [],
     "visibility.cu": ["--fmad=false"],
     "interp.cu": ["--fmad=false"],
     "interp_bwd.cu": ["--fmad=false"],
-    "texture_fetch.cu": [],
-    "texture_scatter.cu": [],
+    "texture_fetch.cu": ["--fmad=false"],
+    "texture_scatter.cu": ["--fmad=false"],
     "plane_gather.cu": [],
 }
 
@@ -77,6 +79,9 @@ def _library_path() -> Path:
         h.update(name.encode())
         h.update(" ".join(ARCH_FLAGS + COMMON_FLAGS + flags).encode())
         h.update((CSRC / name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):      # included by the sources
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD_DIR / f"libvhap_kernels-{h.hexdigest()[:16]}.so"
 
 

@@ -39,8 +39,6 @@ from vhap_tpu_torch.ops.shading import (compute_face_normals,
                                         compute_v_normals, safe_normalize,
                                         shade)
 from vhap_tpu_torch.ops.texture import texture_sample
-from vhap_tpu_torch.ops.texture_fetch import (weighted_fetch,
-                                              weighted_fetch_plain)
 
 
 @dataclass(frozen=True)
@@ -297,9 +295,8 @@ def render_rgba(
         pix_mask = ((flag_planes[0] > 0.5) & fg_mask[..., 0])[..., None]
         flag_planes = flag_planes[1:]
         texc = torch.where(pix_mask, texc.detach(), texc)
-    fetch = weighted_fetch if settings.use_kernels else weighted_fetch_plain
     albedo = texture_sample(tex.permute(0, 2, 3, 1), texc, texd,
-                            mask=fg_mask[..., 0], fetch=fetch)
+                            mask=fg_mask[..., 0], use_kernels=settings.use_kernels)
 
     diffuse = shade(normal, settings.lighting_type, lights)
     diffuse_detach_normal = shade(normal.detach(), settings.lighting_type, lights)
@@ -393,8 +390,8 @@ def render_rgba_vis(
     if verts_uv is not None and faces_uv is not None and tex is not None:
         texc, texd = interpolate(verts_uv[None], rast, faces_uv, rast_db=rast_db,
                                  diff_attrs="all", use_kernels=use_kernels)
-        fetch = weighted_fetch if use_kernels else weighted_fetch_plain
-        albedo = texture_sample(tex.permute(0, 2, 3, 1), texc, texd, fetch=fetch)
+        albedo = texture_sample(tex.permute(0, 2, 3, 1), texc, texd,
+                                use_kernels=use_kernels)
     elif v_color is not None:
         if v_color.dim() == 2:
             v_color = v_color[None]

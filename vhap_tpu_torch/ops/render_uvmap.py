@@ -16,7 +16,6 @@ import torch
 from vhap_tpu_torch.ops.antialias import antialias_rast
 from vhap_tpu_torch.ops.rasterize import interpolate, rasterize
 from vhap_tpu_torch.ops.texture import texture_sample
-from vhap_tpu_torch.ops.texture_fetch import weighted_fetch, weighted_fetch_plain
 
 
 def transform_vt(vt: torch.Tensor) -> torch.Tensor:
@@ -58,8 +57,7 @@ def render_uvmap_texmap(pos: torch.Tensor, pos_idx: torch.Tensor,
     if enable_mip:
         texc, texd = interpolate(verts_uv[None], rast, faces_uv, rast_db=rast_db,
                                  diff_attrs="all", use_kernels=use_kernels)
-        fetch = weighted_fetch if use_kernels else weighted_fetch_plain
-        color = texture_sample(tex[None], texc, texd, fetch=fetch,
+        color = texture_sample(tex[None], texc, texd, use_kernels=use_kernels,
                                max_mip_level=max_mip_level)
     else:
         texc, _ = interpolate(verts_uv[None], rast, faces_uv,

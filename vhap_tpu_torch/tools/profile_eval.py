@@ -12,18 +12,29 @@ warms it up, records --steps steps with
 torch.profiler (CPU and CUDA activities) and prints one JSON line: the
 step's wall time (host clock around a synchronize), the device's busy time
 per step (sum of kernel and memory op times on the card) and idle share,
-and the --top device ops by time per step. The profiler's own cost is in
-the wall time; the device times are the card's. For a train step it also
-records one more step with shapes and counts the zero fills (`aten::zero_`,
-which `aten::zeros` calls) and in-place adds (`aten::add_`) on any
-per-pixel tensor, (B, c, H, W) or (B, H, W, c), with their device time:
-among them the fused interpolation's per-pixel outputs, whose cotangents
-autograd materializes and sums where the render slices one buffer.
+the device ops launched per step, the peak device memory of the recorded
+steps, and the --top device ops by time per step. The profiler's own cost
+is in the wall time; the device times are the card's. For a train step it
+also reports the texture section: the device ms, device ops and top-level
+host ops of `texture_sample` inside the render (ops/render.py; run in a
+profiler range) and of the backward of every op created there (autograd's
+nodes with those sequence numbers). And it records one more step with
+shapes and counts the zero fills (`aten::zero_`, which `aten::zeros`
+calls) and in-place adds (`aten::add_`) on any per-pixel tensor, (B, c, H,
+W) or (B, H, W, c), with their device time: among them the fused
+interpolation's per-pixel outputs, whose cotangents autograd materializes
+and sums where the render slices one buffer; and the ops with a tap tensor
+(B, 4 or 8, H * W) among their inputs, which the fused sampler never forms.
+
+Its train-step reports use only names both the port's trees have, so this
+file can profile an older tree of the port: run it as a script with that
+tree first on PYTHONPATH.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import time
@@ -43,16 +54,15 @@ def _eval_step():
     return step, int(s.batch["rgb"].shape[0])
 
 
-def buffer_ops(step, B: int, H: int, W: int):
-    """Run step() once under torch.profiler with shapes recorded; return
-    {"<op> <shape>": {"calls", "device_ms"}} for the zero fills and
-    in-place adds whose first input is a per-pixel tensor: (B, c, H, W) or
-    (B, H, W, c), any c."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        step()
+def buffer_ops(step, B: int, H: int, W: int, events=None):
+    """Run step() once under torch.profiler with shapes recorded (or read
+    `events` of such a run); return {"<op> <shape>": {"calls",
+    "device_ms"}} for the zero fills and in-place adds whose first input is
+    a per-pixel tensor: (B, c, H, W) or (B, H, W, c), any c."""
+    if events is None:
+        events = shaped_events(step)
     out = {}
-    for ev in prof.events():
+    for ev in events:
         shape = ev.input_shapes[0] if ev.input_shapes else []
         if (ev.name in ("aten::zero_", "aten::add_") and len(shape) == 4
                 and shape[0] == B and [H, W] in (shape[1:3], shape[2:])):
@@ -61,6 +71,82 @@ def buffer_ops(step, B: int, H: int, W: int):
             row["calls"] += 1
             row["device_ms"] += ev.device_time_total / 1e3
     return out
+
+
+TEXTURE_RANGE = "texture_sample"
+
+
+@contextlib.contextmanager
+def texture_range():
+    """Run the render's texture_sample (ops/render.py) inside a profiler
+    range named TEXTURE_RANGE."""
+    from vhap_tpu_torch.ops import render
+    sample = render.texture_sample
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function(TEXTURE_RANGE):
+            return sample(*args, **kwargs)
+
+    render.texture_sample = ranged
+    try:
+        yield
+    finally:
+        render.texture_sample = sample
+
+
+def texture_section(events, steps: int):
+    """Per step: device ms, device ops and top-level host ops of the
+    texture section, forward (the TEXTURE_RANGE ranges) and backward
+    (autograd's evaluate_function events whose sequence number is one of an
+    op created in those ranges). Device ms sum the ops launched inside,
+    not the range's own span on the device timeline (a user annotation)."""
+    seqs = set()
+
+    def walk(ev, tally):
+        if ev.sequence_nr >= 0:
+            seqs.add(ev.sequence_nr)
+        for k in ev.kernels:
+            if k.name != TEXTURE_RANGE:
+                tally["device_ms"] += k.duration / 1e3
+                tally["device_ops"] += 1
+        for ch in ev.cpu_children:
+            walk(ch, tally)
+
+    def host_op(ev):
+        return not ev.name.startswith(("cuda", "Memcpy", "Memset"))
+
+    fwd = {"device_ms": 0.0, "device_ops": 0, "host_ops": 0}
+    for ev in events:
+        if ev.name == TEXTURE_RANGE:
+            walk(ev, fwd)
+            fwd["host_ops"] += sum(map(host_op, ev.cpu_children))
+    bwd = {"device_ms": 0.0, "device_ops": 0, "host_ops": 0}
+    for ev in events:
+        if ev.name.startswith("autograd::engine::evaluate_function:") and \
+                ev.sequence_nr in seqs:
+            walk(ev, bwd)
+            bwd["host_ops"] += 1
+    return {k: {n: v / steps for n, v in d.items()}
+            for k, d in (("forward", fwd), ("backward", bwd))}
+
+
+def tap_tensor_ops(events, B: int, P: int):
+    """{op name: calls} of the ops with a (B, 4, P) or (B, 8, P) input
+    (trilinear taps written out), from a profile with shapes."""
+    out = {}
+    for ev in events:
+        if any(len(sh) == 3 and sh[0] == B and sh[1] in (4, 8) and sh[2] == P
+               for sh in ev.input_shapes or []):
+            out[ev.name] = out.get(ev.name, 0) + 1
+    return out
+
+
+def shaped_events(step):
+    """The events of one step() under torch.profiler, shapes recorded."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+    return prof.events()
 
 
 def _train_step(stage: str):
@@ -126,28 +212,40 @@ def main() -> None:
         run()
         torch.cuda.synchronize()
 
-    for _ in range(3):
-        step()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
+    train = bool(args.stage and not args.vis)
+    ranges = texture_range() if train else contextlib.nullcontext()
+    with ranges:
+        for _ in range(3):
             step()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                step()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    peak = torch.cuda.max_memory_allocated()
 
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        # a profiler range shows on the device timeline as a user
+        # annotation spanning its ops; it is no device op of its own
+        if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                ev.key == TEXTURE_RANGE or getattr(ev, "is_user_annotation", False):
             continue
         ms = ev.self_device_time_total / 1e3 / args.steps
         rows.append({"name": ev.key[:120], "calls_per_step": ev.count / args.steps,
                      "ms_per_step": ms})
+    launches = sum(r["calls_per_step"] for r in rows)
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
     for r in rows:
         r["share"] = r["ms_per_step"] / busy if busy else None
     extra = {}
-    if args.stage and not args.vis:
-        extra["pixel_buffer_ops_per_step"] = buffer_ops(step, batch, H, W)
+    if train:
+        extra["texture_section_per_step"] = texture_section(prof.events(), args.steps)
+        events = shaped_events(step)
+        extra["pixel_buffer_ops_per_step"] = buffer_ops(step, batch, H, W, events)
+        extra["tap_tensor_ops_per_step"] = tap_tensor_ops(events, batch, H * W)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
@@ -156,7 +254,9 @@ def main() -> None:
         "batch": batch, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy if rows else "not measured",
         "device_idle_share": 1.0 - busy / wall_ms if rows else "not measured",
-        "device_ops": len(rows), **extra, "top": rows[:args.top]}))
+        "device_ops": len(rows),
+        "device_launches_per_step": launches if rows else "not measured",
+        "peak_memory_gib": peak / 2**30, **extra, "top": rows[:args.top]}))
 
 
 if __name__ == "__main__":

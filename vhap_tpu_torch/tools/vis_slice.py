@@ -24,7 +24,6 @@ from vhap_tpu_torch.ops.rasterize import interpolate, rasterize
 from vhap_tpu_torch.ops.render import RenderSettings, render_rgba_vis
 from vhap_tpu_torch.ops.shading import compute_v_normals, safe_normalize, shade
 from vhap_tpu_torch.ops.texture import texture_sample
-from vhap_tpu_torch.ops.texture_fetch import weighted_fetch, weighted_fetch_plain
 from vhap_tpu_torch.tools.eval_slice import EvalSlice, build_eval_slice
 from vhap_tpu_torch.tracker import params as P
 from vhap_tpu_torch.tracker.energy import fill_cam_params, render_verts_uv
@@ -68,8 +67,8 @@ class VisSlice:
         texc, texd = interpolate(self.verts_uv[None], rast, head.textures_idx,
                                  rast_db=rast_db, diff_attrs="all",
                                  use_kernels=use_kernels)
-        fetch = weighted_fetch if use_kernels else weighted_fetch_plain
-        albedo = texture_sample(tex.permute(0, 2, 3, 1), texc, texd, fetch=fetch)
+        albedo = texture_sample(tex.permute(0, 2, 3, 1), texc, texd,
+                                use_kernels=use_kernels)
         normal, _ = interpolate(compute_v_normals(verts, head.faces), rast,
                                 head.faces, use_kernels=use_kernels)
         rgb = albedo * shade(safe_normalize(normal), "SH", self.lights)
