@@ -2,7 +2,8 @@
 train steps, the visualization render, the entry points, the dense-list
 configuration, the value scatter, adversarial scenes for the visibility and
 fused-interp backward kernels and adversarial uvs for the fused trilinear
-sampler, and the tracker loop.
+sampler, the tracker loop, and the NeRSemble path (the calibrated 16-view
+step with the teeth head, track_nersemble, and the NeRF-dataset export).
 
     python3 chip_smoke.py
 
@@ -122,10 +123,41 @@ Phases (any failure ends the run with a non-zero exit):
      the global phase;
  20. GT recovery: tools/validate.py's reduced schedule (16 frames at 256^2,
      batch 8) must PASS its rule (rot < 0.1 rad, trans < 0.02);
+ 21. the calibrated multiview step at full width (tools/multiview_slice.py):
+     a rig of 16 cameras x MV_TRACK_FRAMES timesteps at 512^2 written by
+     tools/make_synthetic_multiview.py with the teeth head of
+     tools/surgery_regions.py, its inner lips removed so that the teeth
+     show (3,192 vertices, 6,128 faces), and a seeded near-identity affine
+     colour correction per camera, read through the port's
+     NeRSembleDataset; one eval step (counts zeroed: K1, K2f, K3 once) and
+     one train step of bench.py's metric-3 configuration
+     (BaseTrackingConfig's rgb_sequential_tracking, texture optimized)
+     with the disturbance on (all five once), 16 views of one timestep;
+     there must be pixels won by teeth faces; K1, K2f, K3 at the eval
+     step's own launch, K2b, K3 and K4 at the train step's, each against
+     its plain version as in 4 and 7, K3 and K4 also on the teeth pixels
+     alone; the eval step against the plain path (1e-4) and the train
+     step's terms (1e-4 relative) and gradients (1e-3 * max|g|), the
+     disturbance off; the step's ms (median of 10 after 2 warm-ups),
+     device-busy ms (torch.profiler) and peak memory;
+ 22. `python -m vhap_tpu_torch.track_nersemble` through its main() on that
+     rig, full width, reduced depth (MV_TRACK_STEPS: landmark stages, the
+     rgb stages, one global epoch, disturbance on), counts zeroed before
+     and read after (K1, K2f, K3 once per rgb step and evaluation render,
+     K2b and K4 once per rgb step; K3 and K4 checked at the last rgb
+     step's launch); GT recovery (mean |d translation| < 0.02, mean |d
+     rotation| < 0.08), no focal_length in the npz, timestep 0's eval
+     energy below its value at the initial parameters;
+ 23. export_as_nerf_dataset of that run (FLAME on the card, the mask from
+     the mesh on) and once more without the mask, then
+     combine_nerf_datasets of the two: transforms*.json schema and splits,
+     every flame_param npz, canonical_flame_param.npz, and the mask taking
+     foreground below the neck line and none above it;
 each phase group's seconds are printed as it ends, and each kernel's time
 beside the previous kernels' time, a constant (PRIOR_MS); then one JSON
-line of the kernels, nvidia-smi's line, and the result line {"ok": true,
-"device": {...}} last.
+line of the kernels (each row's `launches` from the train step, and
+`launches_by_path` with its count on every path above that runs it),
+nvidia-smi's line, and the result line {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -195,6 +227,13 @@ LOOP_STEPS = {"lmk_init_rigid": 50, "lmk_init_all": 50, "rgb_init_texture": 10,
               "rgb_init_all": 10, "rgb_init_offset": 10,
               "rgb_sequential_tracking": 10}
 LOOP_MEDIA_EVERY = 25
+# the NeRSemble path (phases 21-23): a 16-view rig of MV_TRACK_FRAMES
+# timesteps at 512^2 with the teeth head; track_nersemble at full width,
+# reduced depth (the reference: 500 a stage, 50 a timestep, 30 epochs)
+MV_TRACK_FRAMES = 4
+MV_TRACK_STEPS = {"lmk_init_rigid": 150, "lmk_init_all": 150, "rgb_init_texture": 10,
+                  "rgb_init_all": 10, "rgb_init_offset": 10,
+                  "rgb_sequential_tracking": 20}
 RECOVERY_SCHEDULE_SCALE = 1.0     # tools/validate.py's reduced schedule
 
 
@@ -394,7 +433,7 @@ def capture_sampler(keep_last: bool = False):
         tf._TrilinearSample, tf._launch_bwd = sampler, launch_bwd
 
 
-def check_sampler(where, args, g=None, seed=3):
+def check_sampler(where, args, g=None, seed=3, focus=None):
     """K3 and K4 against their plain versions at one launch's arguments
     (flat1, uv, uv_da, mask, offsets, sizes): K3's out within 1e-5 absolute
     on every pixel, and 0 pixels whose taps (level and texels, formed by
@@ -403,8 +442,11 @@ def check_sampler(where, args, g=None, seed=3):
     pixels: d_uv and d_uv_da within 1e-4 and dflat within 1e-5 of max|ref|
     per channel, the reference trilinear_sample_bwd_plain for a float64
     texture and cotangent (the exact chain rule of the float32 forward's
-    taps; the float32 plain version's own error is logged beside). Returns
-    the K3 and K4 rows' checks, timed at these inputs."""
+    taps; the float32 plain version's own error is logged beside).
+    focus = (name, (B, H, W) bool) holds the same gates on those pixels
+    alone (and dflat on the texels their taps touch), and fails if none of
+    them is sampled. Returns the K3 and K4 rows' checks, timed at these
+    inputs."""
     from vhap_tpu_torch.ops.texture_fetch import (trilinear_sample,
                                                   trilinear_sample_bwd,
                                                   trilinear_sample_bwd_plain,
@@ -421,14 +463,24 @@ def check_sampler(where, args, g=None, seed=3):
         idx_k, wgt_k = trilinear_taps_card(size, offsets, sizes, uv, uv_da, mask)
         idx, wgt = trilinear_taps(size, offsets, sizes, uv, uv_da, mask)
     err = float((out_k - out_p).abs().max())
-    n_other = int((idx_k != idx).any(dim=1).sum())
+    other = (idx_k != idx).any(dim=1)                        # (B, P)
+    n_other = int(other.sum())
     err_taps = float((wgt_k - wgt).abs().max())
-    del idx_k, wgt_k, out_k, out_p
+    covered = (torch.ones((B, P), dtype=torch.bool, device="cuda") if mask is None
+               else mask.reshape(B, P))
+    if focus is not None:
+        focus_name, fpx = focus[0], focus[1].reshape(B, P) & covered
+        n_focus = int(fpx.sum())
+        err_f = float((out_k - out_p).reshape(B, P, -1)[fpx].abs().max()) if n_focus else 0.0
+        n_other_f = int((other & fpx).sum())
+        if not (n_focus > 0 and err_f <= 1e-5 and n_other_f == 0):
+            raise RuntimeError(f"K3 at {where} on the {n_focus} sampled {focus_name} "
+                               f"pixels (none is a failure): out error {err_f} "
+                               f"(1e-5), {n_other_f} pixels with other taps")
+    del idx_k, wgt_k, out_k, out_p, other
     if not (err <= 1e-5 and n_other == 0):
         raise RuntimeError(f"K3 at {where}: out error {err} (1e-5), {n_other} "
                            f"pixels with other taps than the plain version's")
-    covered = (torch.ones((B, P), dtype=torch.bool, device="cuda") if mask is None
-               else mask.reshape(B, P))
     if g is None:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         g = torch.randn((B, P, 3), generator=gen, device="cuda") * covered[..., None]
@@ -439,14 +491,33 @@ def check_sampler(where, args, g=None, seed=3):
     plain32 = trilinear_sample_bwd_plain(flat1, size, offsets, sizes, uv,
                                          uv_da, mask, g)
 
-    def rel(x, ref):
-        scale = ref.reshape(-1, ref.shape[-1]).abs().amax(0)
-        e = (x.double() - ref).reshape(-1, ref.shape[-1]).abs().amax(0)
+    def rel(x, ref, rows=None):
+        """Error over max|ref| per channel (the scale taken on all rows),
+        on `rows` of the (-1, C) view alone where given."""
+        ref2 = ref.reshape(-1, ref.shape[-1])
+        scale = ref2.abs().amax(0)
+        e2 = (x.double().reshape(-1, ref.shape[-1]) - ref2).abs()
+        e = (e2 if rows is None else e2[rows]).amax(0)
         return float((e / scale.clamp(min=1e-30)).max()), float(e.max())
 
     (rel_uv, _), (rel_da, _), (rel_flat, err_flat) = (
         rel(x, r) for x, r in zip((d_uv, d_da, dflat), refs))
     rel_p32 = [rel(x, r)[0] for x, r in zip(plain32, refs)]
+    focus_note = ""
+    if focus is not None:
+        texels = torch.zeros(N, dtype=torch.bool, device="cuda")
+        texels[idx[fpx[:, None].expand_as(idx) & (wgt != 0)].long()] = True
+        rel_f = [rel(x, r, rows)[0] for x, r, rows in
+                 zip((d_uv, d_da, dflat), refs, (fpx.reshape(-1),) * 2 + (texels,))]
+        if not (rel_f[0] <= 1e-4 and rel_f[1] <= 1e-4 and rel_f[2] <= 1e-5):
+            raise RuntimeError(f"K4 at {where} on the {focus_name} pixels: d_uv "
+                               f"{rel_f[0]}, d_uv_da {rel_f[1]} of max|ref| "
+                               f"(1e-4), dflat on their {int(texels.sum())} "
+                               f"texels {rel_f[2]} (1e-5)")
+        focus_note = (f"; on the {n_focus} sampled {focus_name} pixels: K3 out "
+                      f"abs err {err_f:.3g}, 0 with other taps, K4 d_uv "
+                      f"{rel_f[0]:.3g}, d_uv_da {rel_f[1]:.3g}, dflat on their "
+                      f"{int(texels.sum())} texels {rel_f[2]:.3g}")
     del refs, plain32, d_uv, d_da, dflat
     if not (rel_uv <= 1e-4 and rel_da <= 1e-4 and rel_flat <= 1e-5):
         raise RuntimeError(f"K4 at {where}: d_uv {rel_uv}, d_uv_da {rel_da} of "
@@ -467,7 +538,8 @@ def check_sampler(where, args, g=None, seed=3):
         f"(taps' weight err {err_taps:.3g}); K4 d_uv {rel_uv:.3g}, d_uv_da "
         f"{rel_da:.3g}, dflat {rel_flat:.3g} of max|ref| against float64 (the "
         f"float32 plain version: " + ", ".join(f"{x:.3g}" for x in rel_p32)
-        + f"); {n_cov} covered, {n_live} with a cotangent of {B * P} pixels")
+        + f"); {n_cov} covered, {n_live} with a cotangent of {B * P} pixels"
+        + focus_note)
     k3 = dict(
         name="K3 trilinear_sample", source="vhap_tpu_torch/csrc/texture_fetch.cu",
         replaces="vhap_tpu/ops/texture_grad_pallas.py:476", max_abs_err=err,
@@ -508,18 +580,18 @@ def check_sampler(where, args, g=None, seed=3):
     return k3, k4
 
 
-def check_sampler_launches(where, captured, n_fwd, n_bwd):
+def check_sampler_launches(where, captured, n_fwd, n_bwd, focus=None):
     """The fused sampler's wrappers ran n_fwd / n_bwd times in a captured
     run; K3 and K4 checked at its last launch, with the backward's own
-    cotangent where it ran."""
+    cotangent where it ran (focus: as check_sampler's)."""
     if (len(captured["fwd"]), len(captured["bwd"])) != (n_fwd, n_bwd):
         raise RuntimeError(f"{where}: the sampler's wrappers ran "
                            f"{len(captured['fwd'])} / {len(captured['bwd'])} "
                            f"times, expected {n_fwd} / {n_bwd}")
     if captured["bwd"]:
         args = captured["bwd"][-1]
-        return check_sampler(where, args[:6], g=args[6])
-    return check_sampler(where, captured["fwd"][-1])
+        return check_sampler(where, args[:6], g=args[6], focus=focus)
+    return check_sampler(where, captured["fwd"][-1], focus=focus)
 
 
 def check_adversarial_sampler(size, tex_res):
@@ -651,10 +723,16 @@ def capture_k2b():
         interp._launch_bwd = launch_bwd
 
 
-def check_train_step(ts, kernels, per_step):
-    """Phase 6: one train step through the kernels, disturbance on. Also
-    returns K2b's arguments in it (table, tri_id, per-group cotangents,
-    nf) and the fused sampler's (capture_sampler), for phase 7."""
+TRAIN_TERMS = {"lmk", "photo", "smooth_pose", "reg_joint", "smooth_joint",
+               "reg_expr", "smooth_expr", "reg_tex_tv", "reg_offset_lap",
+               "reg_offset", "total", "rast_overflow"}
+
+
+def check_train_step(ts, kernels, per_step, want=TRAIN_TERMS, where="train"):
+    """Phase 6 (and 21): one train step through the kernels, disturbance
+    on; `want` are the log terms the stage must report. Also returns K2b's
+    arguments in it (table, tri_id, per-group cotangents, nf) and the fused
+    sampler's (capture_sampler), for phase 7."""
     s = ts.eval
     init, step = ts.make_step(True, True)
     params = s.params
@@ -666,11 +744,11 @@ def check_train_step(ts, kernels, per_step):
         new, state, E, logs = step(params, opt_state, s.batch, gen)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
-    log(f"[train] launches in one train step: {launches}")
+    log(f"[{where}] launches in one train step: {launches}")
     for name, n in launches.items():
         if n != per_step:
-            raise RuntimeError(f"{name} launched {n} times in the train step, "
-                               f"expected {per_step}")
+            raise RuntimeError(f"{name} launched {n} times in the {where} train "
+                               f"step, expected {per_step}")
     # Adam's first moment after one step is 0.1 * g: finite iff g is
     bad = [k for k, m in state["mu"].items() if not torch.isfinite(m).all()]
     if bad or not torch.isfinite(E):
@@ -681,22 +759,19 @@ def check_train_step(ts, kernels, per_step):
     if unchanged or moved:
         raise RuntimeError(f"optimizable leaves unchanged {unchanged}, frozen "
                            f"leaves changed {moved}")
-    want = {"lmk", "photo", "smooth_pose", "reg_joint", "smooth_joint",
-            "reg_expr", "smooth_expr", "reg_tex_tv", "reg_offset_lap",
-            "reg_offset", "total", "rast_overflow"}
     if not want <= set(logs):
-        raise RuntimeError(f"train log lacks {sorted(want - set(logs))}")
-    log(f"[train] E_total {float(E):.6f}; " + ", ".join(
+        raise RuntimeError(f"{where} train log lacks {sorted(want - set(logs))}")
+    log(f"[{where}] E_total {float(E):.6f}; " + ", ".join(
         f"{k} {float(v):.6g}" for k, v in logs.items()))
-    log(f"[train] optimizable {sorted(ts.opt_leaves)} changed, frozen "
+    log(f"[{where}] optimizable {sorted(ts.opt_leaves)} changed, frozen "
         f"{sorted(set(params) - ts.opt_leaves)} bit-identical, gradients finite")
     if len(captured) != 1:
         raise RuntimeError(f"K2b's wrapper ran {len(captured)} times in the step")
     return launches, captured[0], sampled
 
 
-def check_train_plain(ts):
-    """Phase 8a: kernels vs plain versions, disturbance off."""
+def check_train_plain(ts, where="train"):
+    """Phase 8a (and 21): kernels vs plain versions, disturbance off."""
     from vhap_tpu_torch.tracker.optim import loss_and_grads
     s = ts.eval
     (Ek, lk, gk), (Ep, lp, gp) = (
@@ -717,7 +792,7 @@ def check_train_plain(ts):
         worst_grad[k] = err / scale if scale > 0 else err
         if not err <= 1e-3 * scale:
             raise RuntimeError(f"gradient of {k}: error {err} over 1e-3 * {scale}")
-    log(f"[train] kernels vs plain (disturbance off): E_total {float(Ek):.6f} "
+    log(f"[{where}] kernels vs plain (disturbance off): E_total {float(Ek):.6f} "
         f"vs {float(Ep):.6f}, worst term rel {worst_term:.3g}; gradient err / "
         f"max|g|: " + ", ".join(f"{k} {v:.3g}" for k, v in worst_grad.items()))
 
@@ -1401,6 +1476,310 @@ def check_tracker_loop(kernels, single_step_ms):
         log(f"[loop] resumed from the run state after the sequential phase "
             f"(global step {step0}): global phase done in {t_resume:.2f} s, "
             f"global step {tr2.global_step}")
+    return launches
+
+
+def check_multiview_step(root, kernels, t0):
+    """Phase 21: the calibrated multiview step at full width
+    (tools/multiview_slice.py: bench.py's metric-3 step, 16 views of one
+    timestep, 512^2, texture 2048, 300/100, texture optimized, plus the
+    teeth head with its mouth open) on the rig at root. Counts zeroed
+    before and read after one eval step (K1, K2f, K3 once) and one train
+    step with the disturbance on (all five once); each kernel held against
+    its plain version at this path's own launch, K3 and K4 also on the
+    pixels won by teeth faces alone (there must be some); the eval step and
+    the train step (disturbance off) against the plain path; the step's
+    ms, device-busy ms and peak memory."""
+    from vhap_tpu_torch.ops import camera as cam
+    from vhap_tpu_torch.tools.multiview_slice import build_multiview_slice
+    from vhap_tpu_torch.tracker.energy import fill_cam_params
+    ts = build_multiview_slice(root, device="cuda")
+    s = ts.eval
+    B, (H, W) = s.batch["rgb"].shape[0], s.image_size
+    head = s.head
+    log(f"[mv] {B} calibrated views of timestep 0 at {H}x{W}, tex "
+        f"{s.cfg.model.tex_resolution}, {s.cfg.model.n_shape}/{s.cfg.model.n_expr}; "
+        f"teeth head V={head.num_verts} F={head.num_faces} "
+        f"({len(head.masks.f['teeth'])} teeth faces); stage {ts.stage}, "
+        f"optimizable {sorted(ts.opt_leaves)}, focal length "
+        f"{'in' if 'focal_length' in s.params else 'not in'} the parameters")
+    eval_kernels = {k: v for k, v in kernels.items()
+                    if k in ("K1 visibility", "K2f fused_interp", "K3 trilinear_sample")}
+    for k in kernels.values():
+        k.launches = 0
+    with capture_sampler() as sampled:
+        E, (logs, aux) = run_step(s.make_energy(True), s.params, s.batch)
+    eval_launches = {name: k.launches for name, k in eval_kernels.items()}
+    log(f"[mv] launches in one eval step: {eval_launches}")
+    if any(n != 1 for n in eval_launches.values()):
+        raise RuntimeError(f"multiview eval step launches {eval_launches}, expected 1 each")
+    n_lmk = head.lmk_faces_idx.shape[0]
+    for key, shape in (("pred_rgb", (B, H, W, 3)), ("pred_alpha", (B, H, W, 1)),
+                       ("pred_lmk2d", (B, n_lmk, 2))):
+        if tuple(aux[key].shape) != shape or not torch.isfinite(aux[key]).all():
+            raise RuntimeError(f"multiview {key}: shape {tuple(aux[key].shape)}, "
+                               f"expected {shape}, or values not finite")
+    fg = aux["pred_alpha"].gt(0).float().mean(dim=(1, 2, 3))
+    if not (float(fg.min()) > 0.005 and torch.isfinite(E)):
+        raise RuntimeError(f"implausible multiview render: fg share per view {fg}")
+    K, RT = fill_cam_params(s.batch, s.params, True, (H, W))
+    verts = aux["verts"]
+    verts_clip = cam.camera_to_clip(cam.world_to_camera(verts, RT), K, (H, W))
+    tri_id, r1 = check_k1(s, verts_clip)
+    teeth = torch.zeros(head.num_faces + 1, dtype=torch.bool, device="cuda")
+    teeth[1 + torch.as_tensor(head.masks.f["teeth"], device="cuda")] = True
+    teeth_px = teeth[tri_id.long()]
+    n_teeth_px = int(teeth_px.sum())
+    if n_teeth_px == 0:
+        raise RuntimeError("no pixel of the multiview step is won by a teeth face")
+    _, r2 = check_k2(s, verts_clip, verts, tri_id)
+    r3, _ = check_sampler_launches("the multiview eval step's launch", sampled, 1, 0,
+                                   focus=("teeth", teeth_px))
+    Ep, (logs_p, _) = run_step(s.make_energy(False), s.params, s.batch)
+    rel = abs(float(E) - float(Ep)) / abs(float(Ep))
+    rel_photo = abs(float(logs["photo"]) - float(logs_p["photo"])) / abs(float(logs_p["photo"]))
+    if not (rel <= 1e-4 and rel_photo <= 1e-4 and float(logs["lmk"]) == float(logs_p["lmk"])):
+        raise RuntimeError(f"multiview eval energy through the kernels disagrees "
+                           f"with the plain path: E rel {rel}, photo rel {rel_photo}")
+    log(f"[mv] eval E_total {float(E):.6f} (plain: rel {rel:.3g}, photo rel "
+        f"{rel_photo:.3g}, lmk equal); fg share per view {float(fg.min()):.4f}-"
+        f"{float(fg.max()):.4f}; {n_teeth_px} pixels won by teeth faces; "
+        f"{r1['note']}; K2f {r2['note']}")
+    del aux, sampled, r1, r2, r3, teeth_px
+    train_launches, k2b_args, train_sampled = check_train_step(ts, kernels, 1,
+                                                               where="mv")
+    r4 = check_k2b(k2b_args)
+    log(f"[mv] K2b at the train step's launch: {r4['note']}")
+    _, r5 = check_sampler_launches("the multiview train step's launch",
+                                   train_sampled, 1, 1,
+                                   focus=("teeth", teeth[k2b_args[1].long()]))
+    del k2b_args, train_sampled, r4, r5
+    check_train_plain(ts, where="mv")
+
+    init, step = ts.make_step(True, True)
+    state = {"params": s.params, "opt": init(s.params)}
+    gen = ts.generator(4)
+
+    def one():
+        state["params"], state["opt"], E, _ = step(state["params"], state["opt"],
+                                                   s.batch, gen)
+        return E
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(12):
+        t = time.perf_counter()
+        E = one()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times[2:]) * 1e3
+    if not torch.isfinite(E):
+        raise RuntimeError(f"multiview step E {float(E)} after 12 steps")
+    del state
+    # device busy from a fresh process: late, short profiler sessions in
+    # this one lose device events
+    prof = subprocess.run(
+        [sys.executable, "-m", "vhap_tpu_torch.tools.profile_eval", "--stage",
+         ts.stage, "--multiview", str(root), "--steps", "5", "--top", "8"],
+        capture_output=True, text=True, timeout=600)
+    if prof.returncode != 0:
+        raise RuntimeError(f"profile_eval --multiview failed: {prof.stderr[-2000:]}")
+    rep = json.loads(prof.stdout.strip().splitlines()[-1])
+    log(f"[mv] multiview train step {ms:.3f} ms (median of 10 after 2), "
+        f"{1.0 / (TRAIN_STEPS_PER_BATCH * ms * 1e-3):.4f} tracked timesteps/s at "
+        f"{TRAIN_STEPS_PER_BATCH} steps per timestep; peak memory "
+        f"{peak / 2**30:.3f} GiB; run {time.perf_counter() - t0:.1f} s")
+    log(f"[mv] profile_eval --multiview (5 steps, {rep['card']}): wall "
+        f"{rep['wall_ms_per_step']:.3f} ms per step under the profiler, device busy "
+        f"{rep['device_busy_ms_per_step']} ms, idle share {rep['device_idle_share']}, "
+        f"{rep['device_launches_per_step']} device launches per step, peak "
+        f"{rep['peak_memory_gib']:.3f} GiB; top: " + ", ".join(
+            f"{r['name'][:40]} {r['ms_per_step']:.3f}" for r in rep["top"]))
+    return eval_launches, train_launches
+
+
+def check_track_nersemble(root, kernels):
+    """Phase 22: `python -m vhap_tpu_torch.track_nersemble` (through main())
+    on the rig at root, full width, reduced depth (MV_TRACK_STEPS, one
+    global epoch, disturbance on), counts zeroed before and read after: K1,
+    K2f, K3 once per rgb step and evaluation render, K2b and K4 once per rgb
+    step. GT recovery (mean |d translation| < 0.02, mean |d rotation| <
+    0.08), no focal length in the npz, the eval energy of timestep 0 falls
+    from the initial parameters. Returns the launches and the run folder."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from vhap_tpu_torch import track_nersemble
+    from vhap_tpu_torch.tracker import params as P
+    argv = ["--data.root_folder", str(root / "data"), "--data.subject", "001",
+            "--data.sequence", "SEN-01", "--data.no-align-cameras-to-axes",
+            "--data.background_color", "None", "--model.asset_dir", str(root / "assets"),
+            "--model.remove-lip-inside",
+            "--exp.output_folder", str(root / "track"),
+            "--pipeline.rgb_global_tracking.num_epochs", "1",
+            "--log.interval_scalar", "50", "--log.interval_media", "100"]
+    for stage, n in MV_TRACK_STEPS.items():
+        argv += [f"--pipeline.{stage}.num_steps", str(n)]
+    for k in kernels.values():
+        k.launches = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as yml, \
+            capture_sampler(keep_last=True) as sampled:
+        tr = track_nersemble.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {name: k.launches for name, k in kernels.items()}
+    rgb_steps = sum(n for st, n in tr.steps_by_stage.items() if st.startswith("rgb"))
+    evals = tr.eval_calls
+    cfg = tr.cfg
+    log(f"[nersemble] track_nersemble.main (its config printed, "
+        f"{len(yml.getvalue().splitlines())} lines): {tr.n_timesteps} timesteps x "
+        f"{tr.dataset.num_cameras} views at {tr.image_size}, head "
+        f"V={tr.head.num_verts}; steps by stage {dict(tr.steps_by_stage)}; "
+        f"{evals} evaluation renders; launches {launches}; wall {wall:.2f} s")
+    if not (tr.calibrated and tr.batchify_all_views and tr.n_timesteps >= 4
+            and cfg.model.add_teeth and cfg.model.remove_lip_inside
+            and tr.dataset.color_correction):
+        raise RuntimeError("track_nersemble did not run the calibrated path with "
+                           "teeth (mouth open) and colour correction")
+    want = {"K1 visibility": rgb_steps + evals, "K2f fused_interp": rgb_steps + evals,
+            "K3 trilinear_sample": rgb_steps + evals,
+            "K2b fused_interp_bwd": rgb_steps, "K4 trilinear_sample_bwd": rgb_steps}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise RuntimeError(f"{name} launched {launches[name]} times in "
+                               f"track_nersemble, expected {n}")
+    args = sampled["bwd"][0]
+    check_sampler("track_nersemble's last rgb step", args[:6], g=args[6])
+    del sampled, args
+    ckpt = sorted(tr.out_dir.glob("tracked_flame_params_*.npz"))[-1]
+    z = dict(np.load(ckpt))
+    with np.load(tr.dataset.sequence_path / "gt_params.npz") as gt:
+        d_trans = float(np.abs(z["translation"] - gt["translation"]).mean())
+        d_rot = float(np.abs(z["rotation"] - gt["rotation"]).mean())
+    batch0 = tr._make_batch([0])
+    init = P.init_params(tr.n_timesteps, cfg.model.n_shape, cfg.model.n_expr,
+                         cfg.model.n_tex, tr.head.num_verts, cfg.model.tex_resolution,
+                         cfg.model.tex_painted, cfg.model.tex_extra,
+                         cfg.render.lighting_type == "SH", cfg.model.use_static_offset,
+                         cfg.model.use_dynamic_offset, True, device="cuda")
+    energy = tr._eval_energy()
+    E0, E1 = (float(energy(p, batch0)[0]) for p in (init, tr.params))
+    stage_ms = {st: tr.step_timer.median_ms(st) for st in tr.steps_by_stage}
+    log(f"[nersemble] GT recovery: mean |d translation| {d_trans:.6f} (< 0.02), "
+        f"mean |d rotation| {d_rot:.6f} (< 0.08); npz {ckpt.name} keys "
+        f"{sorted(z)}; eval E of timestep 0 {E0:.6f} -> {E1:.6f}; median "
+        f"ms/step by stage: " + ", ".join(f"{st} {ms:.3f}" for st, ms in
+                                          stage_ms.items() if ms is not None)
+        + f"; {wall / tr.n_timesteps:.2f} s per tracked timestep at this depth; "
+        f"media_write_s {tr.media_write_s:.3f}, media_blocked_s {tr.media_blocked_s:.3f}")
+    if not (d_trans < 0.02 and d_rot < 0.08):
+        raise RuntimeError(f"multiview GT recovery failed: translation {d_trans}, "
+                           f"rotation {d_rot}")
+    if "focal_length" in z or not all(np.isfinite(v).all() for v in z.values()
+                                      if v.dtype.kind == "f"):
+        raise RuntimeError(f"checkpoint {ckpt.name}: focal_length present or "
+                           f"values not finite")
+    if not (np.isfinite(E1) and E1 < E0):
+        raise RuntimeError(f"eval energy of timestep 0 did not fall: {E0} -> {E1}")
+    return launches, tr.out_dir
+
+
+def check_export(run_dir, root):
+    """Phase 23: export the run as a NeRF dataset through the port's
+    export_as_nerf_dataset (FLAME on the card, the mask from the mesh on),
+    export it again without the mask, and combine the two through
+    combine_nerf_datasets; check the transforms schema and splits, every
+    flame_param npz, the canonical npz, and that the mask took foreground
+    below the neck line and nothing elsewhere."""
+    import json
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    from vhap_tpu_torch.combine_nerf_datasets import combine
+    from vhap_tpu_torch.export_as_nerf_dataset import (MaskFromFLAME, export,
+                                                       infer_flame_params,
+                                                       load_config)
+    parent = root / "export"
+    t = time.perf_counter()
+    export(run_dir, parent / "001_masked", flame_mode="param",
+           create_mask_from_mesh=True, device="cuda")
+    t_export = time.perf_counter() - t
+    export(run_dir, parent / "001_plain", flame_mode="param",
+           create_mask_from_mesh=False, device="cuda")
+    tgt = parent / "001_masked"
+    db = json.load(open(tgt / "transforms.json"))
+    top = {"frames", "timestep_indices", "camera_indices", "cx", "cy", "fl_x",
+           "fl_y", "h", "w", "camera_angle_x", "camera_angle_y"}
+    per_frame = {"timestep_index", "timestep_index_original", "timestep_id",
+                 "camera_index", "camera_id", "cx", "cy", "fl_x", "fl_y", "h", "w",
+                 "camera_angle_x", "camera_angle_y", "transform_matrix", "file_path",
+                 "fg_mask_path", "flame_param_path"}
+    n_t, n_c = len(db["timestep_indices"]), len(db["camera_indices"])
+    if not (top <= set(db) and all(set(f) == per_frame for f in db["frames"])
+            and len(db["frames"]) == n_t * n_c and n_c == MV_CAMS):
+        raise RuntimeError(f"transforms.json: keys {sorted(db)}, {len(db['frames'])} "
+                           f"frames of {n_t} timesteps x {n_c} cameras")
+    splits = {d: json.load(open(tgt / f"transforms_{d}.json"))
+              for d in ("train", "val", "test")}
+    if splits["val"]["camera_indices"] != [8] or not splits["test"]["frames"] \
+            or len(splits["train"]["frames"]) + len(splits["val"]["frames"]) \
+            + len(splits["test"]["frames"]) != len(db["frames"]):
+        raise RuntimeError("the train/val/test splits do not partition the frames")
+    shapes = {"translation": (1, 3), "rotation": (1, 3), "neck_pose": (1, 3),
+              "jaw_pose": (1, 3), "eyes_pose": (1, 6), "shape": (300,),
+              "expr": (1, 100)}
+    npzs = sorted((tgt / "flame_param").glob("*.npz"))
+    for path in npzs:
+        z = dict(np.load(path))
+        got = {k: v.shape for k, v in z.items() if k in shapes}
+        if got != shapes or "static_offset" not in z or not all(
+                np.isfinite(v).all() for v in z.values()):
+            raise RuntimeError(f"{path.name}: {sorted(z)}, shapes {got}")
+    cano = dict(np.load(tgt / "canonical_flame_param.npz"))
+    if len(npzs) != n_t or not np.allclose(cano["jaw_pose"], [[0.3, 0, 0]]):
+        raise RuntimeError(f"{len(npzs)} flame_param files for {n_t} timesteps; "
+                           f"canonical jaw {cano['jaw_pose']}")
+    # the mask against the same frames unmasked: foreground taken below the
+    # neck line (the mask < 1 there), nothing taken above it
+    _, cfg = load_config(run_dir)
+    masker = MaskFromFLAME(cfg.data, cfg.model, tgt, None, device="cuda")
+    n_taken = n_outside = 0
+    for i in range(0, len(masker.dataset), MV_CAMS + 1):
+        frame = masker.dataset[i]
+        rel = Path(frame["fg_mask_path"]).relative_to(tgt)
+        fg_m = np.asarray(Image.open(tgt / rel)).astype(np.int16)
+        fg_p = np.asarray(Image.open(parent / "001_plain" / rel)).astype(np.int16)
+        verts = infer_flame_params(masker.flame_model, frame["flame_param"], [0])
+        line = masker.get_mask_tilted_line(verts, frame["extrinsics"][None, :3],
+                                           frame["intrinsics"][None],
+                                           frame["image_height"], frame["image_width"])
+        taken = fg_m < fg_p
+        n_taken += int(taken.sum())
+        n_outside += int((taken & (line >= 1.0)).sum())
+    if n_taken == 0 or n_outside:
+        raise RuntimeError(f"neck-line mask: {n_taken} foreground pixels taken, "
+                           f"{n_outside} of them above the line")
+    combine([parent / "001_masked", parent / "001_plain"], parent / "UNION_001",
+            division_mode="last")
+    union = parent / "UNION_001"
+    te = json.load(open(union / "transforms_test.json"))
+    tr = json.load(open(union / "transforms_train.json"))
+    if te["timestep_indices"] != list(range(n_t, 2 * n_t)) or \
+            not tr["frames"][0]["file_path"].startswith("../001_masked/") or \
+            not (union / "canonical_flame_param.npz").exists():
+        raise RuntimeError("combine_nerf_datasets: wrong test timesteps or paths")
+    log(f"[export] export_as_nerf_dataset (mask from mesh): {len(db['frames'])} "
+        f"frames, {len(npzs)} flame_param files in {t_export:.2f} s "
+        f"({t_export / len(db['frames']) * 1e3:.1f} ms per frame); schema, splits "
+        f"and canonical npz hold; the neck-line mask took {n_taken} foreground "
+        f"pixels of the frames checked, all below the line; combine: "
+        f"{len(tr['frames'])} train and {len(te['frames'])} test frames")
 
 
 def check_recovery():
@@ -1463,6 +1842,7 @@ def main() -> int:
     kernels = {"K1 visibility": VISIBILITY, "K2f fused_interp": FUSED_INTERP,
                "K3 trilinear_sample": TRILINEAR_SAMPLE}
     per_step = {name: 1 for name in kernels}
+    paths = {}      # path -> {kernel row name: launches}, for the kernels line
     eval_kernels = s.make_energy(True)
     for k in kernels.values():
         k.launches = 0
@@ -1470,6 +1850,7 @@ def main() -> int:
         E, (logs, aux) = run_step(eval_kernels, s.params, s.batch)
     launches = {name: k.launches for name, k in kernels.items()}
     log(f"[main] launches in one eval step: {launches}")
+    paths["eval step"] = launches
     for name, n in launches.items():
         if n != per_step[name]:
             raise RuntimeError(f"{name} launched {n} times on the main path, "
@@ -1529,6 +1910,7 @@ def main() -> int:
     train_kernels = dict(kernels, **{"K2b fused_interp_bwd": FUSED_INTERP_BWD,
                                      "K4 trilinear_sample_bwd": TRILINEAR_SAMPLE_BWD})
     train_launches, k2b_args, train_sampled = check_train_step(ts, train_kernels, 1)
+    paths["train step"] = train_launches
 
     # ---- 7. K2b and K4 against their plain versions; 4 and 7 timed ----
     r4 = check_k2b(k2b_args)
@@ -1554,6 +1936,7 @@ def main() -> int:
                    "K2f fused_interp": FUSED_INTERP,
                    "K2b fused_interp_bwd": FUSED_INTERP_BWD}
     vis_launches, cot, vis_sampled = check_vis_path(vs, vis_kernels)
+    paths["vis render + gradient"] = vis_launches
 
     # ---- 10-12. K5 and K6 against their plain versions, timed ----
     tri_vis, r6 = check_k5(vs)
@@ -1572,6 +1955,11 @@ def main() -> int:
     # ---- 16. the dense configuration (K7): eval and train steps ----
     from vhap_tpu_torch.ops.texture_fetch import SCATTER_VALS
     dense_eval, dense_train, dense_k2b_args = check_dense_path(ts, train_kernels)
+    # the dense configuration's K2f and K2b launches are its K7f and K7b
+    dense_name = {"K2f fused_interp": "K7f fused_interp (dense)",
+                  "K2b fused_interp_bwd": "K7b fused_interp_bwd (dense)"}
+    paths["dense eval step"] = {dense_name.get(k, k): n for k, n in dense_eval.items()}
+    paths["dense train step"] = {dense_name.get(k, k): n for k, n in dense_train.items()}
     # K7f's inputs: the render builds them as the flat configuration's (the
     # port has one path), from the same parameters; K7b at the dense train
     # step's own launch
@@ -1586,6 +1974,7 @@ def main() -> int:
     # ---- 17. K8: scatter_taps on the train step's taps ----
     k8_launches, r11 = check_k8(train_sampled["bwd"][0],
                                 {"K8 scatter_taps": SCATTER_VALS})
+    paths["K8 call"] = k8_launches
     rows_out.append(kernel_row(r11, k8_launches["K8 scatter_taps"]))
     lap("17 (K8)")
 
@@ -1596,11 +1985,39 @@ def main() -> int:
     lap("18 (adversarial scenes and uvs, K1 K2b K3 K4)")
 
     # ---- 19. the tracker loop; 20. GT recovery ----
-    check_tracker_loop(train_kernels, single_step_ms)
+    loop_launches = check_tracker_loop(train_kernels, single_step_ms)
+    paths["tracker loop"] = loop_launches
     lap("19 (tracker loop + resume)")
     check_recovery()
     lap("20 (GT recovery)")
+
+    # ---- 21. the multiview step; 22. track_nersemble; 23. export, combine ----
+    import tempfile
+    from pathlib import Path
+
+    from vhap_tpu_torch.tools.multiview_slice import write_rig
+    with tempfile.TemporaryDirectory() as tmp:
+        mv_root = Path(tmp)
+        t = time.perf_counter()
+        write_rig(mv_root, n_cams=MV_CAMS, n_frames=MV_TRACK_FRAMES, size=512,
+                  device="cuda")
+        log(f"[mv] rig: {MV_CAMS} cameras x {MV_TRACK_FRAMES} timesteps at 512^2 "
+            f"with the teeth head and per-camera colour correction, written in "
+            f"{time.perf_counter() - t:.2f} s")
+        mv_eval, mv_train = check_multiview_step(mv_root, train_kernels, t0)
+        paths["multiview eval step"] = mv_eval
+        paths["multiview train step"] = mv_train
+        lap("21 (multiview step, K1 K2f K3 K2b K4)")
+        nersemble_launches, run_dir = check_track_nersemble(mv_root, train_kernels)
+        paths["track_nersemble"] = nersemble_launches
+        lap("22 (track_nersemble)")
+        check_export(run_dir, mv_root)
+        lap("23 (export, combine)")
     log(f"[done] run {time.perf_counter() - t0:.1f} s")
+
+    for row in rows_out:
+        row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
+                                   if row["name"] in n}
 
     print(json.dumps({"kernels": rows_out}), flush=True)
     print(smi_line, flush=True)

@@ -116,10 +116,23 @@ def test_painted_texture_resize_matches(src, dst):
 @pytest.mark.parametrize("option", ["add_teeth", "remove_lip_inside",
                                     "remove_torso"])
 def test_surgery_raises_until_ported(option):
-    a = tassets.load_flame_assets(asset_dir="/nonexistent_force_synth", seed=0)
+    """Surgery is ported (tests/test_torch_surgery.py): on the bare stand-in
+    head, which lacks the lip regions, each option fails where and as the
+    JAX package's build fails, or builds the same faces."""
     kw = {"add_teeth": False, option: True}
-    with pytest.raises(NotImplementedError, match="surgery"):
-        THead.build(n_shape=NS, n_expr=NE, assets=a, device="cpu", **kw)
+    try:
+        jh = JHead.build(n_shape=NS, n_expr=NE, assets=jassets.load_flame_assets(
+            asset_dir="/nonexistent_force_synth", seed=0), **kw)
+    except Exception as e:
+        with pytest.raises(type(e), match=str(e)[:20]):
+            THead.build(n_shape=NS, n_expr=NE, assets=tassets.load_flame_assets(
+                asset_dir="/nonexistent_force_synth", seed=0), device="cpu", **kw)
+        return
+    th = THead.build(n_shape=NS, n_expr=NE, assets=tassets.load_flame_assets(
+        asset_dir="/nonexistent_force_synth", seed=0), device="cpu", **kw)
+    for name in ("faces", "textures_idx", "v_template", "lbs_weights"):
+        np.testing.assert_array_equal(np.asarray(getattr(jh, name)),
+                                      getattr(th, name).numpy(), err_msg=name)
 
 
 @pytest.mark.parametrize("tex_size", [512, 64])

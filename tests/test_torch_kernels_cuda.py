@@ -467,3 +467,154 @@ def test_fused_interp_bwd_kernel_on_adversarial_scenes(dev, name, nf, none):
     row_ref = ref.abs().amax(dim=(0, 2))
     assert bool(((got - ref).abs().amax(dim=(0, 2)) <= 1e-4 * row_ref).all())
     assert float(row_ref.max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the calibrated multiview step with the teeth head (4 views at 128^2)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mv_slice(dev, tmp_path_factory):
+    from vhap_tpu_torch.tools.multiview_slice import build_multiview_slice, write_rig
+    root = tmp_path_factory.mktemp("mv")
+    write_rig(root, n_cams=4, n_frames=2, size=128, n_shape=20, n_expr=10, device=dev)
+    return build_multiview_slice(root, device=dev, n_shape=20, n_expr=10, tex_res=64)
+
+
+def _teeth_pixels(head, tri_id):
+    """(B, H, W) bool: the pixels won by teeth faces."""
+    teeth = torch.zeros(head.num_faces + 1, dtype=torch.bool, device=tri_id.device)
+    teeth[1 + torch.as_tensor(head.masks.f["teeth"], device=tri_id.device)] = True
+    return teeth[tri_id.long()]
+
+
+def test_multiview_visibility_and_interp_kernels_match_plain(dev, mv_slice):
+    """K1 and K2f at the 4 calibrated views' own inputs: tri_id identical
+    (the lips around the open mouth over the teeth shells behind them, and
+    teeth pixels in every view), K2f within 1e-5 on the foreground."""
+    from vhap_tpu_torch.ops import camera as cam
+    from vhap_tpu_torch.ops.interp import fused_interp, fused_interp_plain, join_channels
+    from vhap_tpu_torch.ops.rasterize import visibility, visibility_plain
+    from vhap_tpu_torch.ops.render import pack_face_tables
+    from vhap_tpu_torch.tracker.energy import fill_cam_params, render_verts_uv
+    s = mv_slice.eval
+    H, W = s.image_size
+    with torch.no_grad():
+        _, (_, aux) = s.make_energy(True)(s.params, s.batch)
+        K, RT = fill_cam_params(s.batch, s.params, True, (H, W))
+        verts = aux["verts"]
+        clip = cam.camera_to_clip(cam.world_to_camera(verts, RT), K, (H, W))
+        tri, _ = visibility(clip, s.head.faces, H, W)
+        ref, _ = visibility_plain(clip, s.head.faces, H, W)
+        assert torch.equal(tri, ref) and int((tri > 0).sum()) > 500
+        assert bool((_teeth_pixels(s.head, tri).sum(dim=(1, 2)) > 0).all())
+        packed = pack_face_tables(clip, verts, s.head.faces,
+                                  render_verts_uv(s.head, dev), s.head.textures_idx)
+        got = join_channels(fused_interp(packed, tri, 0)[0])
+        want, _ = fused_interp_plain(packed, tri, 0)
+    fg = (tri > 0)[:, None]
+    assert float(((got - want).abs() / want.abs().clamp(min=1.0) * fg).max()) <= 1e-5
+
+
+def test_multiview_step_kernels_match_plain(dev, mv_slice):
+    """The eval step (K1, K2f, K3 once each) and the train step (K2b, K4
+    once) through the kernels against the plain path: eval E 1e-4
+    relative; train terms 1e-4 relative, gradients 1e-3 * max|g|."""
+    from vhap_tpu_torch.ops.interp import FUSED_INTERP, FUSED_INTERP_BWD
+    from vhap_tpu_torch.ops.rasterize import VISIBILITY
+    from vhap_tpu_torch.ops.texture_fetch import TRILINEAR_SAMPLE, TRILINEAR_SAMPLE_BWD
+    from vhap_tpu_torch.tracker.optim import loss_and_grads
+    ts, s = mv_slice, mv_slice.eval
+    counters = (VISIBILITY, FUSED_INTERP, TRILINEAR_SAMPLE, FUSED_INTERP_BWD,
+                TRILINEAR_SAMPLE_BWD)
+    n0 = [c.launches for c in counters]
+    with torch.no_grad():
+        Ek, _ = s.make_energy(True)(s.params, s.batch)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, n0)] == [1, 1, 1, 0, 0]
+    with torch.no_grad():
+        Ep, _ = s.make_energy(False)(s.params, s.batch)
+    assert abs(float(Ek) - float(Ep)) <= 1e-4 * abs(float(Ep))
+    n0 = [c.launches for c in counters]
+    (Ek, lk, gk) = loss_and_grads(ts.make_energy(True, False), s.params, ts.opt_leaves,
+                                  s.batch, ts.generator(0))
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, n0)] == [1, 1, 1, 1, 1]
+    (Ep, lp, gp) = loss_and_grads(ts.make_energy(False, False), s.params,
+                                  ts.opt_leaves, s.batch, ts.generator(0))
+    assert set(lk) == set(lp)
+    for k in lp:
+        assert abs(float(lk[k]) - float(lp[k])) <= 1e-4 * abs(float(lp[k])), k
+    for k in gp:
+        assert float((gk[k] - gp[k]).abs().max()) <= 1e-3 * float(gp[k].abs().max()), k
+
+
+def test_multiview_step_launches_match_plain_kernels(dev, mv_slice, monkeypatch):
+    """K2b, K3 and K4 at the arguments of their own launches in the 4-view
+    train step (disturbance on), each against its plain version to its
+    gate: K3 within 1e-5 and the same taps on every pixel; K4 d_uv and
+    d_uv_da within 1e-4, dflat within 1e-5 of max|ref| per channel against
+    the float64 plain version; K2b within 1e-4 of each table row's
+    max|ref|. K3 and K4 are held on the pixels won by teeth faces (the
+    teeth UV strip at the texture's top edge) as well as on all."""
+    from vhap_tpu_torch.ops import interp
+    from vhap_tpu_torch.ops import texture_fetch as tf
+    from vhap_tpu_torch.tracker.optim import loss_and_grads
+    ts, s = mv_slice, mv_slice.eval
+    sampler_args, k2b_args = [], []
+    launch_sampler_bwd, launch_k2b = tf._launch_bwd, interp._launch_bwd
+
+    def record_sampler(*args):
+        sampler_args.append(args)
+        return launch_sampler_bwd(*args)
+
+    def record_k2b(table, tri_id, grads, nf):
+        k2b_args.append((table, tri_id, list(grads), nf))
+        return launch_k2b(table, tri_id, grads, nf)
+
+    monkeypatch.setattr(tf, "_launch_bwd", record_sampler)
+    monkeypatch.setattr(interp, "_launch_bwd", record_k2b)
+    loss_and_grads(ts.make_energy(True, True), s.params, ts.opt_leaves, s.batch,
+                   ts.generator(0))
+    monkeypatch.undo()
+    assert len(sampler_args) == 1 and len(k2b_args) == 1
+    flat1, uv, da, mask, offsets, sizes, g = sampler_args[0]
+    table, tri_id, grads, nf = k2b_args[0]
+    size = tuple(sizes[0])
+    B, P = uv.shape[0], uv.shape[1] * uv.shape[2]
+    teeth = _teeth_pixels(s.head, tri_id).reshape(B, P)
+    if mask is not None:
+        teeth &= mask.reshape(B, P)
+    assert int(teeth.sum()) > 0
+
+    # K3
+    with torch.no_grad():
+        got = tf.trilinear_sample(flat1, size, offsets, sizes, uv, da, mask)
+        ref = tf.trilinear_sample_plain(flat1, size, offsets, sizes, uv, da, mask)
+        idx, _ = tf.trilinear_taps_card(size, offsets, sizes, uv, da, mask)
+        ref_idx, ref_wgt = tf.trilinear_taps(size, offsets, sizes, uv, da, mask)
+    err = (got - ref).reshape(B, P, -1).abs().amax(-1)
+    assert float(err.max()) <= 1e-5 and float(err[teeth].max()) <= 1e-5
+    assert torch.equal(idx, ref_idx)
+
+    # K4, against the float64 chain rule of the same taps
+    alone = tf.trilinear_sample_bwd(flat1, size, offsets, sizes, uv, da, mask, g)
+    refs = tf.trilinear_sample_bwd_plain(flat1.double(), size, offsets, sizes, uv,
+                                         da, mask, g.double())
+    texels = torch.zeros(flat1.shape[0], dtype=torch.bool, device=dev)
+    texels[ref_idx[teeth[:, None].expand_as(ref_idx) & (ref_wgt != 0)].long()] = True
+    for x, r, tol, rows in zip(alone, refs, (1e-4, 1e-4, 1e-5),
+                               (teeth.reshape(-1),) * 2 + (texels,)):
+        r2 = r.reshape(-1, r.shape[-1])
+        scale = r2.abs().amax(0)
+        e = (x.double().reshape(-1, r.shape[-1]) - r2).abs()
+        assert bool((scale > 0).all())
+        assert bool((e.amax(0) <= tol * scale).all())
+        assert bool((e[rows].amax(0) <= tol * scale).all())
+
+    # K2b, at its own launch's table, tri_id and per-group cotangents
+    d_k = launch_k2b(table, tri_id, grads, nf)
+    d_p = interp._plain_bwd(table.transpose(1, 2), tri_id, grads, nf)
+    row_ref = d_p.abs().amax(dim=(0, 2))
+    assert float(row_ref.max()) > 0
+    assert bool(((d_k - d_p).abs().amax(dim=(0, 2)) <= 1e-4 * row_ref).all())

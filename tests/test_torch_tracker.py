@@ -307,15 +307,12 @@ def test_dataset_items_match_jax(seq, background, scale):
 
 
 def test_out_of_slice_options_raise(seq, tmp_path, monkeypatch):
-    """Multiview, several devices and missing landmarks raise, naming what
-    brings them; without a card the tracker needs device='cpu'."""
+    """Several devices and missing landmarks raise, naming what brings
+    them; without a card the tracker needs device='cpu'. (Calibrated
+    multiview data is ported: tests/test_torch_multiview.py.)"""
     from vhap_tpu_torch import track
     from vhap_tpu_torch.tracker.tracker import GlobalTracker
     root, _ = seq
-    cfg = _cfg(TConfig, root, tmp_path / "out")
-    cfg.data.calibrated = True
-    with pytest.raises(NotImplementedError, match="multiview"):
-        GlobalTracker(cfg, device="cpu")
     cfg = _cfg(TConfig, root, tmp_path / "out")
     cfg.exp.num_devices = 2
     with pytest.raises(NotImplementedError, match="one device"):

@@ -1,12 +1,9 @@
 """FLAME head model as an `nn.Module` with its constants as buffers.
 
-Counterpart of vhap_tpu/model/flame.py: mask construction happens once in
-numpy at build time (`FlameHead.build`), and `forward` is the chain of
-blendshape products and LBS of vhap/model/flame.py:571-646.
-
-Mesh surgery (teeth, lip and torso edits) lives in model/surgery.py of the
-JAX package and is ported with it in a later slice; until then the build
-raises on those options.
+Counterpart of vhap_tpu/model/flame.py: mesh surgery (model/surgery.py)
+and mask construction happen once in numpy at build time
+(`FlameHead.build`), and `forward` is the chain of blendshape products and
+LBS of vhap/model/flame.py:571-646.
 """
 
 from __future__ import annotations
@@ -21,13 +18,9 @@ from torch import nn
 
 from vhap_tpu_torch.device import resolve_device
 from vhap_tpu_torch.model import lbs as L
+from vhap_tpu_torch.model import surgery
 from vhap_tpu_torch.model.assets import FlameAssets, load_flame_assets
 from vhap_tpu_torch.model.masks import FlameMasks, FlameUvMasks
-
-SURGERY_NOT_PORTED = (
-    "{} needs mesh surgery (vhap_tpu/model/surgery.py), which is ported in "
-    "the slice that ports model/surgery.py; build with {}=False until then")
-
 
 def build_uniform_laplacian(num_verts: int, faces: np.ndarray):
     """Uniform graph Laplacian as a padded neighbor table.
@@ -125,15 +118,6 @@ class FlameHead(nn.Module):
         device=None,
     ) -> "FlameHead":
         device = resolve_device(device)
-        for name, on in (("add_teeth", add_teeth),
-                         ("connect_lip_inside", connect_lip_inside),
-                         ("remove_lip_inside", remove_lip_inside),
-                         ("remove_torso", remove_torso),
-                         ("disable_deformation_on_torso",
-                          disable_deformation_on_torso)):
-            if on:
-                raise NotImplementedError(SURGERY_NOT_PORTED.format(name, name))
-
         a = assets if assets is not None else load_flame_assets(asset_dir)
         a = copy.copy(a)
         for name in ("v_template", "shapedirs", "posedirs", "J_regressor",
@@ -150,7 +134,22 @@ class FlameHead(nn.Module):
 
         masks = FlameMasks(a.part_masks, a.faces, a.textures_idx,
                            a.v_template.shape[0], face_clusters)
-        nbr_idx, nbr_w = build_uniform_laplacian(a.v_template.shape[0], a.faces)
+
+        faces_orig = a.faces.copy()  # the Laplacian's connectivity
+        if add_teeth:
+            surgery.add_teeth(a, masks, n_shape)
+        if connect_lip_inside:
+            surgery.connect_lip_inside(a, masks)
+        if remove_lip_inside:
+            surgery.remove_lip_inside(a, masks)
+        if remove_torso:
+            surgery.remove_torso(a, masks)
+        if disable_deformation_on_torso:
+            surgery.disable_deformation_on_torso(a, masks, n_expr)
+
+        # the pre-surgery connectivity over the (teeth-extended) vertex
+        # count, as in vhap/model/flame.py:196
+        nbr_idx, nbr_w = build_uniform_laplacian(a.v_template.shape[0], faces_orig)
         return FlameHead(n_shape, n_expr, a, masks, nbr_idx, nbr_w, device)
 
     @property

@@ -101,6 +101,11 @@ def pack_face_tables(verts_clip, space_verts, faces, verts_uv, faces_uv,
     given, else they are the first 6 PLANE_KEYS rows again."""
     B = verts_clip.shape[0]
     F = faces.shape[0]
+    if faces_uv.shape[0] != F:   # as vhap_tpu/ops/render.py:608's reshape
+        raise ValueError(
+            f"{faces_uv.shape[0]} uv faces for {F} faces: the train render needs "
+            "one uv row per face (connect_lip_inside and remove_torso leave "
+            "textures_idx out of step, a reference quirk of model/surgery.py)")
     v_normal = compute_v_normals(space_verts, faces)
     nrm_tab = v_normal[:, faces].permute(0, 2, 3, 1).reshape(B, 9, F)
     uv_tab = verts_uv[faces_uv].permute(1, 2, 0).reshape(1, 6, F)
@@ -349,6 +354,23 @@ def render_rgba(
     return out
 
 
+def _uv_tables_for(faces, verts_uv, faces_uv):
+    """A uv-face table with a row for every face. connect_lip_inside adds
+    faces and no uv rows (a reference quirk, model/surgery.py): the JAX
+    package's per-pixel gather fills the missing rows' corners with NaN, so
+    those faces get a NaN uv row here, read in bounds; the sampler skips
+    their pixels (masked, uv 0) and their albedo is NaN, as in JAX. Returns (verts_uv,
+    faces_uv, whether rows were missing)."""
+    n_short = faces.shape[0] - faces_uv.shape[0]
+    if n_short <= 0:
+        return verts_uv, faces_uv, False
+    nan_row = torch.full((1, 2), float("nan"), dtype=verts_uv.dtype,
+                         device=verts_uv.device)
+    fill = torch.full((n_short, 3), verts_uv.shape[0], dtype=faces_uv.dtype,
+                      device=faces_uv.device)
+    return torch.cat([verts_uv, nan_row]), torch.cat([faces_uv, fill]), True
+
+
 def render_rgba_vis(
     verts, faces, RT, K, image_size,
     settings: RenderSettings,
@@ -388,10 +410,20 @@ def render_rgba_vis(
         normal = gather(fn.transpose(1, 2).contiguous(), tri_id).permute(0, 2, 3, 1)
 
     if verts_uv is not None and faces_uv is not None and tex is not None:
+        verts_uv, faces_uv, short = _uv_tables_for(faces, verts_uv, faces_uv)
         texc, texd = interpolate(verts_uv[None], rast, faces_uv, rast_db=rast_db,
                                  diff_attrs="all", use_kernels=use_kernels)
-        albedo = texture_sample(tex.permute(0, 2, 3, 1), texc, texd,
-                                use_kernels=use_kernels)
+        if short:
+            no_uv = torch.isnan(texc[..., 0])
+            m = no_uv[..., None]
+            albedo = texture_sample(tex.permute(0, 2, 3, 1),
+                                    torch.where(m, 0.0, texc),
+                                    torch.where(m, 0.0, texd),
+                                    mask=~no_uv, use_kernels=use_kernels)
+            albedo = torch.where(no_uv[..., None], float("nan"), albedo)
+        else:
+            albedo = texture_sample(tex.permute(0, 2, 3, 1), texc, texd,
+                                    use_kernels=use_kernels)
     elif v_color is not None:
         if v_color.dim() == 2:
             v_color = v_color[None]

@@ -7,12 +7,18 @@ Cameras on an arc around the head; writes
   <root>/<subject>/<sequence>/alpha_maps/cam_<id>_<ts>.jpg
   <root>/<subject>/<sequence>/landmark2d/STAR/<id>.npz
   <root>/<subject>/<sequence>/gt_params.npz
+  <root>/color_correction/<subject>/<id>.npy   (with color_correction=True)
 
 Data is rendered in the *post-conversion* opengl convention and re-encoded
 to opencv w2c so the NeRSembleDataset's conversion pipeline
 (vhap/data/nersemble_dataset.py:75-124) round-trips to the ground truth.
 Use with ``align_cameras_to_axes=False``. Every frame renders all cameras
 as one batch, on the CUDA card unless given another device.
+
+With color_correction=True each camera gets a seeded affine colour
+transform near the identity (the (3, 4) matrix NeRSembleDataset applies as
+rgb @ A[:, :3] + A[:, 3]), and its images are written through the
+transform's inverse, so that the corrected frames are the renders.
 """
 
 from __future__ import annotations
@@ -48,9 +54,19 @@ def _arc_cameras_gl(n_cams: int, radius: float = 1.0, span_deg: float = 60.0):
     return np.stack(Rs), np.stack(ts)
 
 
+def color_corrections(n_cams: int, seed: int = 0) -> np.ndarray:
+    """(n_cams, 3, 4) affine colour transforms near the identity."""
+    rng = np.random.default_rng(seed + 1)
+    A = np.zeros((n_cams, 3, 4))
+    A[:, :, :3] = np.eye(3) + rng.normal(scale=0.03, size=(n_cams, 3, 3))
+    A[:, :, 3] = rng.normal(scale=0.01, size=(n_cams, 3))
+    return A
+
+
 def generate_multiview(root: Path, subject: str = "001", sequence: str = "SEN-01",
                        n_cams: int = 4, n_frames: int = 4, size: int = 128,
-                       seed: int = 0, head=None, device=None):
+                       seed: int = 0, head=None, device=None,
+                       color_correction: bool = False):
     """Write the rig sequence; returns (ground-truth parameters, camera
     ids). The head defaults to the asset loader's, built on `device`
     (default: the CUDA card); frames render on the head's device."""
@@ -118,6 +134,16 @@ def generate_multiview(root: Path, subject: str = "001", sequence: str = "SEN-01
     def frame(name, i):
         return torch.as_tensor(gt[name][i], device=dev)[None]
 
+    inv_cc = None
+    if color_correction:
+        cc_dir = root / "color_correction" / subject
+        cc_dir.mkdir(parents=True, exist_ok=True)
+        A = color_corrections(n_cams, seed)
+        inv_cc = []
+        for ci, cid in enumerate(cam_ids):
+            np.save(cc_dir / f"{cid}.npy", A[ci])
+            inv_cc.append((np.linalg.inv(A[ci, :, :3]), A[ci, :, 3]))
+
     lmks_per_cam = [[] for _ in range(n_cams)]
     for fi in range(n_frames):
         with torch.no_grad():
@@ -133,6 +159,9 @@ def generate_multiview(root: Path, subject: str = "001", sequence: str = "SEN-01
                                   lights=lights)
             rgba = out["rgba"].cpu().numpy()
             ts_id = f"{fi:05d}"
+            if inv_cc is not None:   # raw = (corrected - b) @ M^-1
+                for ci, (M_inv, b) in enumerate(inv_cc):
+                    rgba[ci, ..., :3] = (rgba[ci, ..., :3] - b) @ M_inv
             for ci, cid in enumerate(cam_ids):
                 save_frame(rgba[ci], seq_dir / "images" / f"cam_{cid}_{ts_id}.jpg",
                            seq_dir / "alpha_maps" / f"cam_{cid}_{ts_id}.jpg")

@@ -1,11 +1,13 @@
 """Where the evaluation or train step's device time goes, on one CUDA card.
 
     python -m vhap_tpu_torch.tools.profile_eval [--stage rgb_sequential_tracking
-        | --vis [--grad]] [--steps 5] [--top 25]
+        [--multiview ROOT] | --vis [--grad]] [--steps 5] [--top 25]
 
 Builds the bench-width evaluation step (tools/eval_slice.py) or, with
 --stage, that stage's train step (tools/train_slice.py: forward, backward
-and Adam, disturbance on), or, with --vis, the visualization render
+and Adam, disturbance on; with --multiview ROOT, the calibrated step on all
+views of one timestep of the NeRSemble rig at ROOT, written by
+tools/multiview_slice.write_rig), or, with --vis, the visualization render
 `render_rgba_vis` on the same scene (tools/vis_slice.py; with --grad, the
 gradient of its differentiable chain for a seeded random cotangent instead),
 warms it up, records --steps steps with
@@ -149,9 +151,13 @@ def shaped_events(step):
     return prof.events()
 
 
-def _train_step(stage: str):
-    from vhap_tpu_torch.tools.train_slice import build_train_slice
-    ts = build_train_slice(device="cuda", stage=stage)
+def _train_step(stage: str, multiview=None):
+    if multiview is not None:
+        from vhap_tpu_torch.tools.multiview_slice import build_multiview_slice
+        ts = build_multiview_slice(multiview, device="cuda", stage=stage)
+    else:
+        from vhap_tpu_torch.tools.train_slice import build_train_slice
+        ts = build_train_slice(device="cuda", stage=stage)
     init, step_fn = ts.make_step(True, True)
     state = {"params": ts.eval.params}
     state["opt"] = init(state["params"])
@@ -188,6 +194,8 @@ def main() -> None:
                     help="the visualization render (render_rgba_vis)")
     ap.add_argument("--grad", action="store_true",
                     help="with --vis: the gradient of the vis chain")
+    ap.add_argument("--multiview", default=None, metavar="ROOT",
+                    help="with --stage: the calibrated step on the rig at ROOT")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -198,12 +206,14 @@ def main() -> None:
 
     if args.grad and not args.vis:
         raise SystemExit("profile_eval: --grad goes with --vis")
+    if args.multiview and not args.stage:
+        raise SystemExit("profile_eval: --multiview goes with --stage")
     if args.vis:
         run, batch = _vis_step(args.grad)
         name = "vis_grad" if args.grad else "vis"
     elif args.stage:
-        run, batch, (H, W) = _train_step(args.stage)
-        name = args.stage
+        run, batch, (H, W) = _train_step(args.stage, args.multiview)
+        name = args.stage + (" (multiview)" if args.multiview else "")
     else:
         run, batch = _eval_step()
         name = "eval"

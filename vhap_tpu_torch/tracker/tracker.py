@@ -22,9 +22,11 @@ On the device:
   * the cluster disturbance draws from one torch.Generator on the device,
     seeded 0, saved with the run state.
 
-Not in this slice, each raising a clear error: calibrated multiview data
-(`data.calibrated=True`), landmark detection (missing landmark files), and
-more than one device (`exp.num_devices > 1`).
+Calibrated multiview data (`data.calibrated=True`, NeRSemble) batches all
+views of one timestep per step, with the dataset's cameras (the focal
+length is then neither created nor optimized). Not in the port, each
+raising a clear error: landmark detection (missing landmark files) and more
+than one device (`exp.num_devices > 1`).
 """
 
 from __future__ import annotations
@@ -128,10 +130,6 @@ class GlobalTracker:
         self.cfg = cfg
         self.device = resolve_device(device if device is not None else cfg.device)
         self.calibrated = cfg.data.calibrated
-        if self.calibrated:
-            raise NotImplementedError(
-                "data.calibrated=True (multiview, NeRSemble) is ported in the "
-                "multiview slice; the port tracks monocular video")
         if cfg.exp.num_devices > 1:
             raise NotImplementedError(
                 f"exp.num_devices={cfg.exp.num_devices}: the port tracks on "
@@ -168,9 +166,11 @@ class GlobalTracker:
         self.logger = get_logger(__name__, root=True, log_dir=self.out_dir)
         self.logger.info(f"Tracking on {dev}")
 
-        # data
+        # data: calibrated multiview batches every view of one timestep
         self.dataset = import_module(cfg.data._target)(
-            cfg=cfg.data, img_to_tensor=True, batchify_all_views=False)
+            cfg=cfg.data, img_to_tensor=True,
+            batchify_all_views=self.calibrated)
+        self.batchify_all_views = self.dataset.batchify_all_views
         rgb0 = self.dataset[0]["rgb"]
         self.image_size = tuple(rgb0.shape[-3:-1])
         self.n_timesteps = len(self.dataset)
@@ -251,7 +251,22 @@ class GlobalTracker:
 
     def _host_batch(self, indices: List[int]) -> Dict[str, torch.Tensor]:
         """Collate frame indices into a padded host batch (pinned when the
-        tracker computes on the card); padded samples have weight 0."""
+        tracker computes on the card); padded samples have weight 0. With
+        all views batched, `indices` is one timestep and the batch its
+        views, with their cameras (vhap_tpu/tracker/tracker.py:205-221)."""
+        if self.batchify_all_views:
+            assert len(indices) == 1
+            item = self.dataset.getitem_by_timestep(indices[0])
+            n = item["rgb"].shape[0]
+            batch = {
+                "rgb": torch.from_numpy(np.asarray(item["rgb"], np.float32)),
+                "timestep_index": torch.full((n,), indices[0], dtype=torch.int32),
+                "weight": torch.ones(n),
+            }
+            for k in ("lmk2d", "intrinsic", "extrinsic"):
+                if k in item:
+                    batch[k] = torch.from_numpy(np.asarray(item[k], np.float32))
+            return self._pin(batch)
         bs = self.cfg.batch_size
         pad = bs - len(indices)
         idx = list(indices) + [indices[-1]] * pad
@@ -267,6 +282,9 @@ class GlobalTracker:
         if "lmk2d" in items[0]:
             batch["lmk2d"] = torch.from_numpy(
                 np.stack([it["lmk2d"] for it in items]).astype(np.float32))
+        return self._pin(batch)
+
+    def _pin(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self.device.type == "cuda":
             batch = {k: v.pin_memory() for k, v in batch.items()}
         return batch
@@ -279,8 +297,9 @@ class GlobalTracker:
         return self._to_device(self._host_batch(indices))
 
     def _batches(self, shuffle: bool, seed: int = 0) -> Iterable[Dict]:
-        """Host batches over all frames, in order or shuffled."""
-        bs = self.cfg.batch_size
+        """Host batches over all frames (timesteps, with all views
+        batched), in order or shuffled."""
+        bs = 1 if self.batchify_all_views else self.cfg.batch_size
         order = np.arange(self.n_timesteps)
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
@@ -523,10 +542,12 @@ class GlobalTracker:
         self.logger.info("Started Evaluation")
         energy = self._eval_energy()
         photo = []
-        # batch_size timesteps per step; per-timestep scalars come from the
-        # *_per_sample aux terms, each normalized by its own foreground
-        # area like the reference's per-timestep loop
-        bs = self.cfg.batch_size
+        # batch_size timesteps per step (one with all views batched);
+        # per-timestep scalars come from the *_per_sample aux terms, each
+        # normalized by its own foreground area like the reference's
+        # per-timestep loop, or, with all views batched, from the step's
+        # log, which is then the timestep's value
+        bs = 1 if self.batchify_all_views else self.cfg.batch_size
         chunks = [list(range(i, min(i + bs, self.n_timesteps)))
                   for i in range(0, self.n_timesteps, bs)]
         media_every = max(1, self.n_timesteps // 10)
@@ -556,8 +577,13 @@ class GlobalTracker:
         for chunk in chunks:
             batch = self._make_batch(chunk)
             E, (log, aux) = energy(self.params, batch)
-            per_copy = _HostCopy({k: v for k, v in aux.items()
-                                  if k.endswith("_per_sample")})
+            if self.batchify_all_views:
+                per_copy = _HostCopy({f"{k}_per_sample": log[k].reshape(1)
+                                      for k in ("lmk", "photo", "total")
+                                      if k in log})
+            else:
+                per_copy = _HostCopy({k: v for k, v in aux.items()
+                                      if k.endswith("_per_sample")})
             media_copy = (self._media_copy(aux, batch)
                           if make_visualization
                           and any(t % media_every == 0 for t in chunk) else None)
