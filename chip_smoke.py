@@ -2,8 +2,10 @@
 train steps, the visualization render, the entry points, the dense-list
 configuration, the value scatter, adversarial scenes for the visibility and
 fused-interp backward kernels and adversarial uvs for the fused trilinear
-sampler, the tracker loop, and the NeRSemble path (the calibrated 16-view
-step with the teeth head, track_nersemble, and the NeRF-dataset export).
+sampler, the tracker loop, the NeRSemble path (the calibrated 16-view
+step with the teeth head, track_nersemble, and the NeRF-dataset export),
+and preprocess (the FAN, STAR and matting networks, then a video through
+preprocess, annotation inside the tracker and tracking).
 
     python3 chip_smoke.py
 
@@ -153,6 +155,34 @@ Phases (any failure ends the run with a non-zero exit):
      combine_nerf_datasets of the two: transforms*.json schema and splits,
      every flame_param npz, canonical_flame_param.npz, and the mask taking
      foreground below the neck line and none above it;
+ 24. the preprocess networks at full width (preprocess/{fan,star,matting}
+     .py): FAN(4) (4 modules, depth 4, 256 features, 68 landmarks; seeded,
+     its BN statistics baked by finalize_bn_stats on the card), STAR (4
+     stacks, depth 4, 256 features; seeded), the bundled FAN and U-Net on
+     seeded 256^2 crops at batch 1 and 16, the U-Net also on 512^2 frames;
+     cuDNN TF32 left on process-wide (torch's default) so that the
+     networks' own full_float32() is what is tested; each output of the
+     batch-1 call against the same module in float64 on the CPU and the
+     batch-16 call against the batch-1 call (PRE_TOL * max|ref| per
+     output; the last heatmaps' argmaxes equal wherever the float64 top-2
+     margin is over the tolerance); ms per image at batch 1, images/s at
+     batch 16 (CUDA events), device ms (torch.profiler), convolution
+     TFLOP/s and the peak memory above the resident at batch 16;
+ 25. preprocess -> track: a 16-frame 512^2 sequence from the port's
+     generator written as an mp4 with OpenCV, then `preprocess` (OpenCV
+     frame extraction, 'matting_jax': the bundled U-Net on the card) and
+     GlobalTracker with landmark_source 'fan-jax' and its default 8
+     detector threads, which annotates on construction with the bundled
+     FAN on the card and tracks at phase 19's depth, counts zeroed before
+     and read after (K1, K2f, K3 once per rgb step and evaluation render,
+     K2b and K4 once per rgb step), every parameter finite; the first and
+     last frames' detections (both passes' heatmaps within PRE_TOL, the
+     box equal unless a whole-image argmax lies under the top-2 margin,
+     landmarks over the margin equal) and alpha maps (the U-Net's within
+     ALPHA_TOL, refined within REFINED_ALPHA_TOL) against the port's CPU
+     run on the same JPEGs; ms per frame for matting and detection, the
+     chain's wall. Landmark accuracy is not gated: the bundled FAN was
+     trained on renders of the FLAME template and misses on the stand-in;
 each phase group's seconds are printed as it ends, and each kernel's time
 beside the previous kernels' time, a constant (PRIOR_MS); then one JSON
 line of the kernels (each row's `launches` from the train step, and
@@ -164,6 +194,7 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -235,6 +266,19 @@ MV_TRACK_STEPS = {"lmk_init_rigid": 150, "lmk_init_all": 150, "rgb_init_texture"
                   "rgb_init_all": 10, "rgb_init_offset": 10,
                   "rgb_sequential_tracking": 20}
 RECOVERY_SCHEDULE_SCALE = 1.0     # tools/validate.py's reduced schedule
+# the preprocess networks (phases 24-25): the detectors' 256^2 crops at
+# batch 1 (what they run) and 16, the U-Net also on 512^2 frames; card
+# outputs (full float32) against the same module in float64 on the CPU:
+# every output within PRE_TOL * max|ref|, alpha within ALPHA_TOL
+PRE_CROP, PRE_FRAME, PRE_BATCH = 256, 512, 16
+PRE_TOL = 1e-4
+ALPHA_TOL = 1e-4
+# the refined alpha: the guided filter (host float32, the JAX package's
+# algorithm) takes its box means from float32 integral images of the 512^2
+# frame (sums up to 2.6e5, ulp 1/64), so a 2.6e-6 change in the U-Net's
+# alpha moved the refined alpha by 1.16e-3 (NVIDIA H100 80GB HBM3, frame 15)
+REFINED_ALPHA_TOL = 1e-2
+PRE_FRAMES = 16                   # phase 25's sequence at PRE_FRAME^2
 
 
 def log(msg: str) -> None:
@@ -1803,6 +1847,334 @@ def check_recovery():
         raise RuntimeError(f"GT recovery failed: {report}")
 
 
+def conv_flops(net, x) -> float:
+    """Multiply-adds x 2 of every convolution in one forward of net on x
+    (counted from the shapes by forward hooks)."""
+    total = [0.0]
+
+    def count(mod, _, out):
+        k = mod.weight.shape
+        total[0] += 2.0 * out.numel() * k[1] * k[2] * k[3]
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def net_outputs(name, out):
+    """A preprocess network's outputs as {label: tensor}."""
+    if name.startswith("STAR"):
+        hms, lmks = out
+        return dict({f"stack {i} heatmaps": h for i, h in enumerate(hms)},
+                    landmarks=lmks)
+    if name.startswith("FAN"):
+        return {f"module {i} heatmaps": h for i, h in enumerate(out)}
+    return {"alpha logits": out}
+
+
+def argmax_margins(hm_card, hm_ref, tol):
+    """Landmarks (B, L) of heatmaps (B, L, H, W): how many have their argmax
+    differ between card and reference with the reference's top-2 margin
+    over tol, and the mask of those under it (where an argmax may rightly
+    differ)."""
+    ref = hm_ref.flatten(2)
+    top2 = ref.topk(2, dim=-1).values
+    under = (top2[..., 0] - top2[..., 1]) <= tol
+    differ = hm_card.flatten(2).double().argmax(-1).cpu() != ref.argmax(-1)
+    return int((differ & ~under).sum()), under
+
+
+def check_preprocess_nets(smi_line):
+    """Phase 24: the preprocess networks at full width on the card: card
+    outputs against the same module in float64 on the CPU, the batch-16
+    call against the batch-1 call; times, device ms and peak memory."""
+    import numpy as np
+    log(f"[pre] times below on {smi_line}")
+
+    from vhap_tpu_torch.preprocess import fan, matting, star
+    assets = "vhap_tpu_torch/assets/"
+    rng = np.random.default_rng(0)
+    crops = torch.from_numpy(rng.uniform(0, 1, (PRE_BATCH, 3, PRE_CROP, PRE_CROP))
+                             .astype(np.float32))
+    frames = torch.from_numpy(rng.uniform(0, 1, (PRE_BATCH, 3, PRE_FRAME, PRE_FRAME))
+                              .astype(np.float32))
+    t = time.perf_counter()
+    fan4 = fan.init_fan_params(torch.Generator().manual_seed(0))
+    bn_batches = [rng.uniform(0, 1, (PRE_BATCH, PRE_CROP, PRE_CROP, 3)).astype(np.float32)
+                  for _ in range(2)]
+    fan4 = fan.finalize_bn_stats(fan4, bn_batches, device="cuda")
+    log(f"[pre] FAN(4) initialized and its BN statistics baked over "
+        f"{len(bn_batches)} batches of {PRE_BATCH} on the card in "
+        f"{time.perf_counter() - t:.2f} s")
+    nets = [("FAN(4)", fan.FAN, fan4, crops),
+            ("STAR", star.STAR, star.init_star_params(torch.Generator().manual_seed(1)), crops),
+            ("FAN bundled", fan.FAN, fan.load_fan_params(assets + "fan_weights.npz"), crops),
+            ("U-Net bundled 256", matting.UNet,
+             fan.load_fan_params(assets + "matting_weights.npz"), crops),
+            ("U-Net bundled 512", matting.UNet,
+             fan.load_fan_params(assets + "matting_weights.npz"), frames)]
+    # the networks guard their own precision: TF32 stays on (torch's
+    # default) around these phases, full_float32() turns it off per call
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            for name, cls, params, x in nets:
+                check_preprocess_net(name, cls, params, x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def check_preprocess_net(name, cls, params, x):
+    """One network of phase 24 on the crops or frames x (B, 3, H, W)."""
+    from vhap_tpu_torch.preprocess.fan import full_float32
+    net = cls.from_params(params, "cuda")
+    ref_net = cls.from_params(params, "cpu").double()
+    n_params = sum(p.numel() for p in ref_net.state_dict().values())
+    x16 = x.cuda()
+    x1 = x16[:1]
+    with full_float32():
+        out1 = net_outputs(name, net(x1))
+        out16 = net_outputs(name, net(x16))
+    ref = net_outputs(name, ref_net(x[:1].double()))
+    errs = {}
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        err = float((out1[k].double().cpu() - r).abs().max()) / scale
+        err16 = float((out16[k][:1] - out1[k]).abs().max()) / scale
+        errs[k] = err
+        if not (torch.isfinite(out16[k]).all() and err <= PRE_TOL and err16 <= PRE_TOL):
+            raise RuntimeError(f"{name} {k}: card vs float64 {err:.3g}, batch 16 vs 1 "
+                               f"{err16:.3g} of max|ref| {scale:.4g} (tolerance {PRE_TOL})")
+    last = [k for k in ref if k.endswith("heatmaps")][-1:]
+    lmk_note = ""
+    if last:
+        k = last[0]
+        tol = PRE_TOL * float(ref[k].abs().max())
+        bad, under = argmax_margins(out1[k], ref[k], tol)
+        under = int(under.sum())
+        if bad:
+            raise RuntimeError(f"{name}: {bad} heatmap argmaxes differ from float64 "
+                               f"where the top-2 margin exceeds {tol:.3g}")
+        lmk_note = (f"; {k} argmax equal on every landmark with a top-2 margin over "
+                    f"the tolerance, {under} of {ref[k].shape[1]} under it")
+    with full_float32():
+        flops = conv_flops(net, x1)
+        ms1 = cuda_ms(lambda: net(x1))
+        ms16 = cuda_ms(lambda: net(x16))
+        split1, split16 = device_split(lambda: net(x1)), device_split(lambda: net(x16))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        net(x16)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    dev1 = sum(split1.values()) if split1 else None
+    dev16 = sum(split16.values()) if split16 else None
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    rate = ("" if dev16 is None else
+            f", {16 * flops / dev16 / 1e9:.2f} TFLOP/s on the device "
+            f"({16 * flops / dev16 / 1e9 / (PEAK_F32_FLOP_S / 1e12):.1%} of the float32 peak)")
+    H, W = x.shape[-2:]
+    log(f"[pre] {name}: {n_params / 1e6:.3f} M parameters, {H}x{W} input, "
+        f"{flops / 1e9:.3f} GFLOP of convolutions per image; card vs float64 "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" of max|ref| (tolerance {PRE_TOL}){lmk_note}")
+    log(f"[pre] {name}: batch 1 {ms1:.4f} ms per image (device {fmt(dev1)}); batch "
+        f"{PRE_BATCH} {ms16:.4f} ms = {PRE_BATCH / ms16 * 1e3:.1f} images/s (device "
+        f"{fmt(dev16)}{rate}); peak {peak / 2**20:.1f} MiB above the resident "
+        f"at batch {PRE_BATCH}")
+
+
+def detect_recorded(det, img):
+    """det.detect_single_image(img) and the heatmaps of its passes."""
+    seen = []
+    heatmaps = det.heatmaps
+    det.heatmaps = lambda crops: seen.append(heatmaps(crops)) or seen[-1]
+    try:
+        bb, lmks = det.detect_single_image(img)
+    finally:
+        del det.heatmaps
+    return bb, lmks, [torch.from_numpy(h).double() for h in seen]
+
+
+def check_detections(seq, frame_ids):
+    """Phase 25's hold: the card's detections and alpha maps of the frames
+    against the port's CPU run on the same JPEGs, logged frame by frame."""
+    import numpy as np
+    from PIL import Image
+
+    from vhap_tpu_torch.preprocess.landmarks import LandmarkDetectorFANNet
+    from vhap_tpu_torch.preprocess.matting import MattingUNet
+    z = np.load(seq / "landmark2d" / "fan-jax.npz")
+    dets = {d: LandmarkDetectorFANNet(device=d) for d in ("cuda", "cpu")}
+    mats = {d: MattingUNet(device=d) for d in ("cuda", "cpu")}
+    for i in frame_ids:
+        img = np.array(Image.open(seq / "images" / f"{i:06d}.jpg"))
+        (bb_c, l_c, hm_c), (bb_r, l_r, hm_r) = (detect_recorded(dets[d], img)
+                                                for d in ("cuda", "cpu"))
+        if not (np.allclose(z["bounding_box"][i], bb_c, rtol=0, atol=1e-6)
+                and np.allclose(z["face_landmark_2d"][i], l_c, rtol=0, atol=1e-6)):
+            raise RuntimeError(f"frame {i}: the tracker's annotation differs from "
+                               f"the card detector's")
+        # pass 1 (the whole image) fixes the box, pass 2 (the box's crop)
+        # the landmarks: each pass's heatmaps within PRE_TOL of the CPU's,
+        # argmaxes equal where the CPU's top-2 margin is over the tolerance
+        errs, under = [], []
+        for p, (c, r) in enumerate(zip(hm_c, hm_r)):
+            errs.append(float((c - r).abs().max()) / float(r.abs().max()))
+            bad, low = argmax_margins(c, r, PRE_TOL * float(r.abs().max()))
+            under.append(low[0])
+            if errs[-1] > PRE_TOL or bad:
+                raise RuntimeError(f"frame {i} pass {p + 1}: heatmaps {errs[-1]:.3g} of "
+                                   f"max|ref| from the CPU's, {bad} argmaxes over the "
+                                   f"margin differing")
+            if p == 0 and not np.array_equal(bb_c, bb_r):
+                if not low.any():
+                    raise RuntimeError(f"frame {i}: card box {bb_c} vs the CPU's {bb_r}")
+                break      # an argmax under the margin moved the box: pass 2 differs
+        if len(hm_c) != len(hm_r):
+            raise RuntimeError(f"frame {i}: card {len(hm_c)} passes, CPU {len(hm_r)}")
+        conf_err = float(np.abs(l_c[:, 2] - l_r[:, 2]).max())
+        if len(errs) == 2:
+            ok = ~under[1].numpy()
+            lmk_err = float(np.abs(l_c[ok, :2] - l_r[ok, :2]).max())
+            if lmk_err > 1e-6 or conf_err > PRE_TOL:
+                raise RuntimeError(f"frame {i}: landmarks over the margin {lmk_err:.3g} "
+                                   f"from the CPU's, confidences {conf_err:.3g}")
+        x = img.astype(np.float32) / 255.0
+        net_err = float(np.abs(mats["cuda"].alpha(x[None]) - mats["cpu"].alpha(x[None])).max())
+        a_c, a_r = mats["cuda"].predict(x), mats["cpu"].predict(x)
+        a_err = float(np.abs(a_c - a_r).max())
+        written = np.asarray(Image.open(seq / "alpha_maps" / f"{i:06d}.jpg"), np.int32)
+        buf = io.BytesIO()
+        Image.fromarray((a_r * 255).astype(np.uint8)).save(buf, "JPEG", quality=95)
+        jpeg_err = int(np.abs(written - np.asarray(Image.open(buf), np.int32)).max())
+        if net_err > ALPHA_TOL or a_err > REFINED_ALPHA_TOL:
+            raise RuntimeError(f"frame {i}: the U-Net's alpha {net_err:.3g} from the "
+                               f"CPU's (tolerance {ALPHA_TOL}), refined {a_err:.3g} "
+                               f"(tolerance {REFINED_ALPHA_TOL})")
+        log(f"[pre->track] frame {i}: bbox {np.round(bb_c[:4], 4).tolist()} "
+            f"{'equal' if np.array_equal(bb_c, bb_r) else 'differs'}, heatmaps "
+            f"{[f'{e:.3g}' for e in errs]} of max|ref| by pass, landmarks under the "
+            f"top-2 margin by pass {[int(u.sum()) for u in under]}, conf "
+            f"{conf_err:.3g}; U-Net alpha {net_err:.3g}, refined {a_err:.3g}; the "
+            f"written alpha JPEG {jpeg_err} levels from the CPU alpha's JPEG")
+
+
+def check_preprocess_track(kernels, smi_line):
+    """Phase 25: preprocess -> track on a generated 16-frame 512^2 sequence
+    written as an mp4: `preprocess` extracts its frames and the bundled U-Net
+    mattes them ('matting_jax'), GlobalTracker annotates them with the
+    bundled FAN on construction (landmark_source 'fan-jax') and tracks them
+    at phase 19's depth, counts zeroed before and read after."""
+    import tempfile
+    from pathlib import Path
+
+    import cv2
+    import numpy as np
+    from PIL import Image
+
+    from vhap_tpu_torch.preprocess import landmarks, video
+    from vhap_tpu_torch.tools.make_synthetic_sequence import generate
+    from vhap_tpu_torch.tracker.tracker import GlobalTracker
+    torch.backends.cudnn.allow_tf32 = True     # as in phase 24
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            generate(root / "render", n_frames=PRE_FRAMES, size=PRE_FRAME, n_shape=300,
+                     n_expr=100, device="cuda")
+            writer = cv2.VideoWriter(str(root / "seq.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
+                                     25, (PRE_FRAME, PRE_FRAME))
+            for f in sorted((root / "render" / "images").glob("*.jpg")):
+                writer.write(np.asarray(Image.open(f))[..., ::-1])
+            writer.release()
+            seq = root / "seq"
+            matted = []
+            matting = video.matting_unet
+
+            def timed_matting(*args, **kw):
+                t = time.perf_counter()
+                matting(*args, **kw)
+                matted.append(time.perf_counter() - t)
+            video.matting_unet = timed_matting
+            t0 = time.perf_counter()
+            try:
+                video.preprocess(root / "seq.mp4", target_fps=25,
+                                 matting_method="matting_jax", device="cuda")
+            finally:
+                video.matting_unet = matting
+            t_pre = time.perf_counter() - t0
+            t_mat = matted[0]
+            n_frames = len(list((seq / "images").glob("*.jpg")))
+            n_alpha = len(list((seq / "alpha_maps").glob("*.jpg")))
+            cfg = tracker_config(root, root / "out", "seq")
+            cfg.data.background_color = "white"     # composited with the matted alpha
+            cfg.data.landmark_source = "fan-jax"
+            cfg.__post_init__()
+            for k in kernels.values():
+                k.launches = 0
+            annotate, t_det = landmarks.annotate_landmarks, []
+
+            def timed_annotate(*args, **kw):
+                t = time.perf_counter()
+                annotate(*args, **kw)
+                t_det.append(time.perf_counter() - t)
+            landmarks.annotate_landmarks = timed_annotate
+            t = time.perf_counter()
+            try:
+                tr = GlobalTracker(cfg)
+            finally:
+                landmarks.annotate_landmarks = annotate
+            t_build = time.perf_counter() - t
+            if len(t_det) != 1:
+                raise RuntimeError(f"the tracker annotated {len(t_det)} times, expected 1")
+            if not (n_frames == n_alpha == PRE_FRAMES
+                    and (seq / "landmark2d" / "fan-jax.npz").exists()):
+                raise RuntimeError(f"preprocess wrote {n_frames} frames and {n_alpha} "
+                                   f"alpha maps of {PRE_FRAMES}; fan-jax.npz "
+                                   f"{(seq / 'landmark2d' / 'fan-jax.npz').exists()}")
+            t = time.perf_counter()
+            tr.optimize()
+            torch.cuda.synchronize()
+            t_track = time.perf_counter() - t
+            launches = {name: k.launches for name, k in kernels.items()}
+            rgb_steps = sum(n for st, n in tr.steps_by_stage.items() if st.startswith("rgb"))
+            evals = tr.eval_calls
+            want = {"K1 visibility": rgb_steps + evals, "K2f fused_interp": rgb_steps + evals,
+                    "K3 trilinear_sample": rgb_steps + evals,
+                    "K2b fused_interp_bwd": rgb_steps, "K4 trilinear_sample_bwd": rgb_steps}
+            for name, n in want.items():
+                if launches[name] != n:
+                    raise RuntimeError(f"{name} launched {launches[name]} times on "
+                                       f"preprocess -> track, expected {n}")
+            bad = [k for k, v in tr.params.items() if not torch.isfinite(v).all()]
+            if bad:
+                raise RuntimeError(f"parameters not finite after tracking: {bad}")
+            z = np.load(seq / "landmark2d" / "fan-jax.npz")
+            faces = int((z["bounding_box"][:, 0] >= 0).sum())
+            check_detections(seq, (0, PRE_FRAMES - 1))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    t_det = t_det[0]
+    log(f"[pre->track] times below on {smi_line}")
+    log(f"[pre->track] preprocess (OpenCV frame extraction from the mp4, then the "
+        f"matting) {t_pre:.2f} s; matting {t_mat:.2f} s = {t_mat / PRE_FRAMES * 1e3:.1f} "
+        f"ms per frame ({PRE_FRAMES} frames at {PRE_FRAME}^2, JPEG IO and guided filter "
+        f"included); detection in the tracker's construction {t_det:.2f} s = "
+        f"{t_det / PRE_FRAMES * 1e3:.1f} ms per frame ({cfg.data.landmark_detector_njobs} "
+        f"threads, faces found on {faces} of {PRE_FRAMES} frames; construction "
+        f"{t_build:.2f} s in all); tracking {t_track:.2f} s; chain wall "
+        f"{t_pre + t_build + t_track:.2f} s = {(t_pre + t_build + t_track) / PRE_FRAMES:.3f} "
+        f"s per frame; steps by stage {dict(tr.steps_by_stage)}, {evals} evaluation "
+        f"renders; launches {launches}")
+    return launches
+
+
 def main() -> int:
     smi_line = card()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in full
@@ -2013,6 +2385,12 @@ def main() -> int:
         lap("22 (track_nersemble)")
         check_export(run_dir, mv_root)
         lap("23 (export, combine)")
+
+    # ---- 24. the preprocess networks; 25. preprocess -> track ----
+    check_preprocess_nets(smi_line)
+    lap("24 (preprocess networks)")
+    paths["preprocess → track"] = check_preprocess_track(train_kernels, smi_line)
+    lap("25 (preprocess -> track)")
     log(f"[done] run {time.perf_counter() - t0:.1f} s")
 
     for row in rows_out:

@@ -67,9 +67,10 @@ def test_default_device_is_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from vhap_tpu_torch.model.assets import load_flame_assets
     from vhap_tpu_torch.model.flame import FlameHead
+    from vhap_tpu_torch.preprocess import landmarks, matting, star, video
     from vhap_tpu_torch.tracker.params import init_params
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assets = load_flame_assets(asset_dir="/nonexistent_force_synth", seed=0)
@@ -77,6 +78,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         FlameHead.build(n_shape=4, n_expr=2, assets=assets, add_teeth=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(2, 4, 2, 1, 10, 8, True, True, True, True, False, False)
+    # the preprocess networks and entry points: the card unless asked
+    small_star = star.init_star_params(nstack=1, depth=1, feats=8)
+    for make in (landmarks.LandmarkDetectorFANNet,
+                 lambda: landmarks.LandmarkDetectorSTARNet(params=small_star),
+                 matting.MattingUNet,
+                 lambda: matting.matting_unet(tmp_path),
+                 lambda: video.preprocess(tmp_path / "clip.mp4",
+                                          matting_method="matting_jax"),
+                 lambda: landmarks.annotate_landmarks(None, source="fan-jax")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_kernel_wrappers_take_no_cpu_fallback():

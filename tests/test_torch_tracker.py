@@ -307,9 +307,12 @@ def test_dataset_items_match_jax(seq, background, scale):
 
 
 def test_out_of_slice_options_raise(seq, tmp_path, monkeypatch):
-    """Several devices and missing landmarks raise, naming what brings
-    them; without a card the tracker needs device='cpu'. (Calibrated
-    multiview data is ported: tests/test_torch_multiview.py.)"""
+    """Several devices raise, naming what brings them; missing landmarks of
+    a package-gated source raise as in the JAX package (its detector's
+    RuntimeError naming the package); without a card the tracker needs
+    device='cpu'. (Calibrated multiview data is ported:
+    tests/test_torch_multiview.py; detection with the in-repo networks:
+    tests/test_torch_preprocess.py.)"""
     from vhap_tpu_torch import track
     from vhap_tpu_torch.tracker.tracker import GlobalTracker
     root, _ = seq
@@ -319,7 +322,7 @@ def test_out_of_slice_options_raise(seq, tmp_path, monkeypatch):
         GlobalTracker(cfg, device="cpu")
     cfg = _cfg(TConfig, root, tmp_path / "out")
     cfg.data.landmark_source = "face-alignment"
-    with pytest.raises(NotImplementedError, match="preprocess slice"):
+    with pytest.raises(RuntimeError, match="face.alignment"):
         GlobalTracker(cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

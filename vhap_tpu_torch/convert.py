@@ -2,7 +2,9 @@
 
 Both packages keep their state in numpy-convertible arrays: parameters in
 a flat dict of per-leaf arrays, FLAME constants in a `FlameAssets`-shaped
-bundle of numpy arrays. These helpers take that form (not the JAX
+bundle of numpy arrays, the preprocess networks' weights in a nested
+parameter tree (the bundled `assets/*_weights.npz` files hold it). These
+helpers take that form (not the JAX
 package's types, which this package does not import) so that both sides
 compute on identical numbers.
 """
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 import copy
 from pathlib import Path
-from typing import Mapping, Sequence, Union
+from typing import Dict, Mapping, Sequence, Union
 
 import numpy as np
 import torch
@@ -30,6 +32,66 @@ TRACKED_KEYS = {"rotation": "rotation", "translation": "translation",
                 "tex_extra": "tex_extra", "lights": "lights",
                 "static_offset": "static_offset",
                 "dynamic_offset": "dynamic_offset"}
+
+
+def _tree_state(tree: Mapping[str, object], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A preprocess network's parameter tree -> its nn.Module state dict.
+
+    The tree's paths are the module's names: a 4-D leaf is a conv kernel
+    (HWIO -> OIHW `.weight`), a `<name>_bias` leaf that conv's `.bias`, a
+    `{scale, bias[, mean, var]}` node a norm's weight, bias and running
+    statistics; `meta` holds no tensor."""
+    state: Dict[str, torch.Tensor] = {}
+    for key, value in tree.items():
+        if key == "meta":
+            continue
+        path = prefix + key
+        if isinstance(value, Mapping):
+            if "scale" in value:
+                for src, dst in (("scale", "weight"), ("bias", "bias"),
+                                 ("mean", "running_mean"), ("var", "running_var")):
+                    if src in value:
+                        state[f"{path}.{dst}"] = _f32(value[src])
+            else:
+                state.update(_tree_state(value, path + "."))
+        elif key.endswith("_bias"):
+            state[f"{prefix}{key[:-len('_bias')]}.bias"] = _f32(value)
+        else:
+            w = np.asarray(value)
+            if w.ndim != 4:
+                raise ValueError(f"{path}: expected an HWIO conv kernel, got shape {w.shape}")
+            state[f"{path}.weight"] = _f32(w.transpose(3, 2, 0, 1))
+    return state
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _checked_state(params: Mapping[str, object], net: str, meta_keys) -> Dict[str, torch.Tensor]:
+    missing = [k for k in meta_keys if k not in params.get("meta", {})]
+    if missing:
+        raise ValueError(f"not a {net} parameter tree: meta lacks {missing}")
+    return _tree_state(params)
+
+
+def fan_params_to_torch(params: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """A FAN parameter tree in the JAX package's form (numpy, HWIO kernels,
+    BN scale/bias/mean/var, meta) -> the state dict of the port's
+    `preprocess.fan.FAN` of that meta."""
+    return _checked_state(params, "FAN", ("num_modules", "depth", "feats", "num_landmarks"))
+
+
+def star_params_to_torch(params: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """A STAR parameter tree (as fan_params_to_torch's) -> the state dict of
+    the port's `preprocess.star.STAR`."""
+    return _checked_state(params, "STAR", ("nstack", "depth", "feats", "num_landmarks"))
+
+
+def unet_params_to_torch(params: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """A matting U-Net parameter tree -> the state dict of the port's
+    `preprocess.matting.UNet`."""
+    return _checked_state(params, "matting U-Net", ("base", "levels", "in_ch"))
 
 
 def params_from_numpy(np_params: Mapping[str, object], device=None) -> Params:

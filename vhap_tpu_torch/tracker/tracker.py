@@ -24,9 +24,10 @@ On the device:
 
 Calibrated multiview data (`data.calibrated=True`, NeRSemble) batches all
 views of one timestep per step, with the dataset's cameras (the focal
-length is then neither created nor optimized). Not in the port, each
-raising a clear error: landmark detection (missing landmark files) and more
-than one device (`exp.num_devices > 1`).
+length is then neither created nor optimized). Missing landmark files are
+detected on construction with the configured source (preprocess/landmarks.py)
+on the tracker's device. Not in the port, raising a clear error: more than
+one device (`exp.num_devices > 1`).
 """
 
 from __future__ import annotations
@@ -137,8 +138,8 @@ class GlobalTracker:
         cfg.render.check_portable()
         dev = self.device
 
-        # landmarks must exist: detection (annotate_landmarks) is not ported
-        self._check_landmarks(cfg)
+        # landmark annotation: detect once unless existing files can be reused
+        self._maybe_detect_landmarks(cfg)
 
         # model
         self.head = FlameHead.build(
@@ -227,23 +228,23 @@ class GlobalTracker:
                 continue
         raise FileExistsError(f"no free output folder under {root}")
 
-    def _check_landmarks(self, cfg):
+    def _maybe_detect_landmarks(self, cfg):
+        """Detect the landmarks of cfg.data.landmark_source once, on the
+        tracker's device, unless exp.reuse_landmarks finds them on disk
+        (vhap/model/tracker.py:1263-1277)."""
         if not cfg.data.use_landmark:
             return
         cfg_data = deepcopy(cfg.data)
         cfg_data.use_landmark = False
         probe = import_module(cfg.data._target)(cfg=cfg_data,
                                                 batchify_all_views=False)
-        lmk_path = probe.get_property_path(SOURCE_DIRS[cfg.data.landmark_source],
-                                           len(probe.items) - 1)
+        source = cfg.data.landmark_source
+        lmk_path = probe.get_property_path(SOURCE_DIRS[source], len(probe.items) - 1)
         if cfg.exp.reuse_landmarks and lmk_path.exists():
             return
-        why = ("is missing" if not lmk_path.exists()
-               else "exists, but exp.reuse_landmarks=False asks to detect anew")
-        raise NotImplementedError(
-            f"the landmark file {lmk_path} {why}; landmark detection "
-            "(annotate_landmarks with FAN/STAR) is ported in the preprocess "
-            "slice: detect with the JAX package or another tool first")
+        from vhap_tpu_torch.preprocess.landmarks import annotate_landmarks
+        annotate_landmarks(probe, source=source,
+                           n_jobs=cfg.data.landmark_detector_njobs, device=self.device)
 
     # ------------------------------------------------------------------
     # batching
