@@ -4,8 +4,10 @@ configuration, the value scatter, adversarial scenes for the visibility and
 fused-interp backward kernels and adversarial uvs for the fused trilinear
 sampler, the tracker loop, the NeRSemble path (the calibrated 16-view
 step with the teeth head, track_nersemble, and the NeRF-dataset export),
-and preprocess (the FAN, STAR and matting networks, then a video through
-preprocess, annotation inside the tracker and tracking).
+preprocess (the FAN, STAR and matting networks, then a video through
+preprocess, annotation inside the tracker and tracking), the native frame
+loader, the synthetic FAN and matting trainers, and the headless viewer and
+editor.
 
     python3 chip_smoke.py
 
@@ -112,17 +114,19 @@ Phases (any failure ends the run with a non-zero exit):
      pixels), uv and uv_da as plane views;
  19. the tracker loop: GlobalTracker at full width (batch 16, 512^2,
      texture 2048, 300/100, SH, static offset, residual texture,
-     disturbance on) and reduced depth (LOOP_STEPS, one global epoch) on a
-     32-frame sequence from the port's generator, media every
-     LOOP_MEDIA_EVERY steps into a temporary directory, counts zeroed before
-     and read after: K1, K2f, K3 once per rgb train step and evaluation
+     disturbance on) and reduced depth (tools/loader_ab.MONO_STEPS, one
+     global epoch) on a 32-frame sequence from the port's generator, media
+     every 25 steps into a temporary directory, counts zeroed before and
+     read after: K1, K2f, K3 once per rgb train step and evaluation
      render, K2b, K4 once per rgb train step; K3 and K4 checked as in 4 at
      the last rgb step's sampler launch; the batch-0 eval energy falls;
      the checkpoint has the reference npz schema; per-stage median ms/step,
      the loop's ms/step against the single train step's (phase 8), wall per
      tracked frame, the media split and peak memory; then a second tracker
      resumed from the run state written after the sequential phase runs
-     the global phase;
+     the global phase; every batch of the run through the native frame
+     loader (none through PIL), and the rgb stages' ms/step beside their
+     figures before it (PRIOR_STAGE_MS);
  20. GT recovery: tools/validate.py's reduced schedule (16 frames at 256^2,
      batch 8) must PASS its rule (rot < 0.1 rad, trans < 0.02);
  21. the calibrated multiview step at full width (tools/multiview_slice.py):
@@ -143,13 +147,15 @@ Phases (any failure ends the run with a non-zero exit):
      disturbance off; the step's ms (median of 10 after 2 warm-ups),
      device-busy ms (torch.profiler) and peak memory;
  22. `python -m vhap_tpu_torch.track_nersemble` through its main() on that
-     rig, full width, reduced depth (MV_TRACK_STEPS: landmark stages, the
-     rgb stages, one global epoch, disturbance on), counts zeroed before
+     rig, full width, reduced depth (tools/loader_ab.MV_STEPS: landmark
+     stages, the rgb stages, one global epoch, disturbance on), counts zeroed before
      and read after (K1, K2f, K3 once per rgb step and evaluation render,
      K2b and K4 once per rgb step; K3 and K4 checked at the last rgb
      step's launch); GT recovery (mean |d translation| < 0.02, mean |d
      rotation| < 0.08), no focal_length in the npz, timestep 0's eval
-     energy below its value at the initial parameters;
+     energy below its value at the initial parameters; every batch through
+     the native loader (colour correction in C++), the rgb stages' ms/step
+     beside PRIOR_STAGE_MS;
  23. export_as_nerf_dataset of that run (FLAME on the card, the mask from
      the mesh on) and once more without the mask, then
      combine_nerf_datasets of the two: transforms*.json schema and splits,
@@ -183,6 +189,33 @@ Phases (any failure ends the run with a non-zero exit):
      run on the same JPEGs; ms per frame for matting and detection, the
      chain's wall. Landmark accuracy is not gated: the bundled FAN was
      trained on renders of the FLAME template and misses on the stand-in;
+     every tracker batch through the native loader;
+ 26. the native frame loader (data/native_loader.py): built from
+     vhap_tpu_torch/native by g++ (a failed build fails the run); one
+     timestep of a 16-camera rig with per-camera colour correction, alpha
+     maps and a white background, at 512^2 and at NeRSemble's raw 3208 x
+     2200 scaled by 0.25 to 802 x 550, through load_batch_native and
+     through PIL (getitem_single_image per view): within NATIVE_TOL, ms
+     per 16-frame batch of each;
+ 27. train_fan_synthetic's main() at the tool's full width (batch 8,
+     256^2, the bundled FAN's width: 64 features, 1 module, depth 3, 70
+     landmarks; head 50/30, texture 256), TRAIN_STEPS deep, its weights
+     under build/, counts zeroed before and read after: K5 and K3 once per
+     render, K6 forward a whole number of times per render; at the last
+     render the render through the kernels against use_kernels=False
+     (1e-5), K5 tri_id identical, every plane gather bit-identical, K3 as
+     in 4 (check_k3); ms per step split into render and network, device ms
+     per step, peak memory above the resident, the held-out error (batch 1,
+     stored BN statistics), the weights through LandmarkDetectorFANNet;
+ 28. train_matting_synthetic's main() likewise (the bundled U-Net),
+     the held-out mean |d alpha|, the weights through MattingUNet; the
+     bundled weights' sha256 unchanged by 27-28;
+ 29. flame_viewer's main() on phase 22's tracked archive with the teeth
+     head at 768^2 (PNG frames; mp4 only with ffmpeg) and flame_editor's
+     main() jaw sweep, counts zeroed before and read after each; the
+     kernels at the last render as in 27; every frame not blank and
+     within VIEW_LEVELS on VIEW_SHARE of the values of the same call with
+     use_kernels=False; a highlighted region; ms per frame;
 each phase group's seconds are printed as it ends, and each kernel's time
 beside the previous kernels' time, a constant (PRIOR_MS); then one JSON
 line of the kernels (each row's `launches` from the train step, and
@@ -252,19 +285,12 @@ MV_CAMS, MV_FRAMES = 16, 2        # generate_multiview cameras x frames at 512^2
 # gradients are held as the kernels are held against the plain path
 DENSE_GRAD_TOL = 1e-3
 # the tracker loop: full width (batch 16, 512^2, texture 2048, 300/100),
-# reduced depth
+# reduced depth (tools/loader_ab.mono_config, MONO_STEPS)
 LOOP_FRAMES = 32
-LOOP_STEPS = {"lmk_init_rigid": 50, "lmk_init_all": 50, "rgb_init_texture": 10,
-              "rgb_init_all": 10, "rgb_init_offset": 10,
-              "rgb_sequential_tracking": 10}
-LOOP_MEDIA_EVERY = 25
 # the NeRSemble path (phases 21-23): a 16-view rig of MV_TRACK_FRAMES
 # timesteps at 512^2 with the teeth head; track_nersemble at full width,
-# reduced depth (the reference: 500 a stage, 50 a timestep, 30 epochs)
+# reduced depth (tools/loader_ab.mv_argv, MV_STEPS)
 MV_TRACK_FRAMES = 4
-MV_TRACK_STEPS = {"lmk_init_rigid": 150, "lmk_init_all": 150, "rgb_init_texture": 10,
-                  "rgb_init_all": 10, "rgb_init_offset": 10,
-                  "rgb_sequential_tracking": 20}
 RECOVERY_SCHEDULE_SCALE = 1.0     # tools/validate.py's reduced schedule
 # the preprocess networks (phases 24-25): the detectors' 256^2 crops at
 # batch 1 (what they run) and 16, the U-Net also on 512^2 frames; card
@@ -279,6 +305,28 @@ ALPHA_TOL = 1e-4
 # alpha moved the refined alpha by 1.16e-3 (NVIDIA H100 80GB HBM3, frame 15)
 REFINED_ALPHA_TOL = 1e-2
 PRE_FRAMES = 16                   # phase 25's sequence at PRE_FRAME^2
+# the native frame loader (phase 26): NeRSemble's raw camera frames (portrait
+# 2200 x 3208, vhap_tpu_torch/native/frameloader.cpp) cut by scale_factor 0.25
+# to the 802x550 recipe; native against PIL within the bound of
+# tests/test_native_loader.py where a resize runs
+NATIVE_FRAME = (3208, 2200)       # (H, W)
+NATIVE_SCALE = 0.25
+NATIVE_TOL = 3 / 255
+# ms/step of phases 19 and 22 through PIL, before the native loader (PERF.md
+# §5; NVIDIA H100 80GB HBM3, 700 W), printed beside this run's (constants)
+PRIOR_STAGE_MS = {"tracker loop": {"rgb_sequential_tracking": 106.468,
+                                   "rgb_global_tracking": 142.692},
+                  "track_nersemble": {"rgb_sequential_tracking": 97.649,
+                                      "rgb_global_tracking": 443.435}}
+# the synthetic trainers (phases 27-28) at the tools' full width (batch 8,
+# 256^2, the bundled FAN's and U-Net's widths, head 50/30, texture 256), depth
+# cut from 1,500 (FAN) and 1,200 (U-Net) steps
+TRAIN_STEPS = {"fan": 150, "matting": 150}
+TRAIN_BATCH = 8
+# the viewers (phase 29) at 768^2: each card frame against the same call with
+# use_kernels=False (outputs within 1e-5 before the uint8 cast) within one
+# level on at most 0.1 % of the values
+VIEW_LEVELS, VIEW_SHARE = 1, 1e-3
 
 
 def log(msg: str) -> None:
@@ -1392,29 +1440,6 @@ def check_adversarial():
     return worst
 
 
-def tracker_config(root, out, frames_dir):
-    """The tracker loop's config: full width, reduced depth."""
-    from vhap_tpu_torch.config.base import BaseTrackingConfig
-    cfg = BaseTrackingConfig()
-    cfg.data.root_folder = root
-    cfg.data.sequence = frames_dir
-    cfg.data.background_color = None
-    cfg.model.add_teeth = False
-    cfg.model.use_static_offset = True
-    cfg.model.tex_extra = True
-    cfg.model.tex_resolution = 2048
-    cfg.exp.output_folder = out
-    cfg.batch_size = 16
-    cfg.device = "cuda"
-    for stage, n in LOOP_STEPS.items():
-        cfg.pipeline[stage].num_steps = n
-    cfg.pipeline.rgb_global_tracking.num_epochs = 1
-    cfg.log.interval_scalar = 50
-    cfg.log.interval_media = LOOP_MEDIA_EVERY
-    cfg.__post_init__()
-    return cfg
-
-
 def check_tracker_loop(kernels, single_step_ms):
     """Phase 18: GlobalTracker at full width and reduced depth on a 32-frame
     generated sequence, counts zeroed before and read after; then a second
@@ -1425,6 +1450,7 @@ def check_tracker_loop(kernels, single_step_ms):
 
     import numpy as np
 
+    from vhap_tpu_torch.tools.loader_ab import mono_config
     from vhap_tpu_torch.tools.make_synthetic_sequence import generate
     from vhap_tpu_torch.tracker.tracker import GlobalTracker
     with tempfile.TemporaryDirectory() as tmp:
@@ -1433,7 +1459,7 @@ def check_tracker_loop(kernels, single_step_ms):
         generate(root / "seq", n_frames=LOOP_FRAMES, size=512, n_shape=300,
                  n_expr=100, device="cuda")
         t_gen = time.perf_counter() - t
-        cfg = tracker_config(root, root / "out", "seq")
+        cfg = mono_config(root, root / "out", "cuda")
         tr = GlobalTracker(cfg)
         snapshot = root / "run_state_global.npz"
         save_state = tr.save_run_state
@@ -1503,6 +1529,8 @@ def check_tracker_loop(kernels, single_step_ms):
             f"{n_media} grids, media_write_s {tr.media_write_s:.3f}, "
             f"media_blocked_s {tr.media_blocked_s:.3f}; peak memory "
             f"{peak / 2**30:.3f} GiB")
+        check_native_batches(tr.dataset, "tracker loop")
+        log_stage_ms("tracker loop", stage_ms)
 
         # resume after the sequential phase: the global phase only
         tr2 = GlobalTracker(cfg)
@@ -1645,7 +1673,7 @@ def check_multiview_step(root, kernels, t0):
 
 def check_track_nersemble(root, kernels):
     """Phase 22: `python -m vhap_tpu_torch.track_nersemble` (through main())
-    on the rig at root, full width, reduced depth (MV_TRACK_STEPS, one
+    on the rig at root, full width, reduced depth (loader_ab.MV_STEPS, one
     global epoch, disturbance on), counts zeroed before and read after: K1,
     K2f, K3 once per rgb step and evaluation render, K2b and K4 once per rgb
     step. GT recovery (mean |d translation| < 0.02, mean |d rotation| <
@@ -1657,16 +1685,9 @@ def check_track_nersemble(root, kernels):
     import numpy as np
 
     from vhap_tpu_torch import track_nersemble
+    from vhap_tpu_torch.tools.loader_ab import mv_argv
     from vhap_tpu_torch.tracker import params as P
-    argv = ["--data.root_folder", str(root / "data"), "--data.subject", "001",
-            "--data.sequence", "SEN-01", "--data.no-align-cameras-to-axes",
-            "--data.background_color", "None", "--model.asset_dir", str(root / "assets"),
-            "--model.remove-lip-inside",
-            "--exp.output_folder", str(root / "track"),
-            "--pipeline.rgb_global_tracking.num_epochs", "1",
-            "--log.interval_scalar", "50", "--log.interval_media", "100"]
-    for stage, n in MV_TRACK_STEPS.items():
-        argv += [f"--pipeline.{stage}.num_steps", str(n)]
+    argv = mv_argv(root, root / "track")
     for k in kernels.values():
         k.launches = 0
     t = time.perf_counter()
@@ -1720,6 +1741,8 @@ def check_track_nersemble(root, kernels):
                                           stage_ms.items() if ms is not None)
         + f"; {wall / tr.n_timesteps:.2f} s per tracked timestep at this depth; "
         f"media_write_s {tr.media_write_s:.3f}, media_blocked_s {tr.media_blocked_s:.3f}")
+    check_native_batches(tr.dataset, "track_nersemble")
+    log_stage_ms("track_nersemble", stage_ms)
     if not (d_trans < 0.02 and d_rot < 0.08):
         raise RuntimeError(f"multiview GT recovery failed: translation {d_trans}, "
                            f"rotation {d_rot}")
@@ -2080,6 +2103,7 @@ def check_preprocess_track(kernels, smi_line):
     from PIL import Image
 
     from vhap_tpu_torch.preprocess import landmarks, video
+    from vhap_tpu_torch.tools.loader_ab import mono_config
     from vhap_tpu_torch.tools.make_synthetic_sequence import generate
     from vhap_tpu_torch.tracker.tracker import GlobalTracker
     torch.backends.cudnn.allow_tf32 = True     # as in phase 24
@@ -2112,7 +2136,7 @@ def check_preprocess_track(kernels, smi_line):
             t_mat = matted[0]
             n_frames = len(list((seq / "images").glob("*.jpg")))
             n_alpha = len(list((seq / "alpha_maps").glob("*.jpg")))
-            cfg = tracker_config(root, root / "out", "seq")
+            cfg = mono_config(root, root / "out", "cuda")
             cfg.data.background_color = "white"     # composited with the matted alpha
             cfg.data.landmark_source = "fan-jax"
             cfg.__post_init__()
@@ -2142,6 +2166,7 @@ def check_preprocess_track(kernels, smi_line):
             tr.optimize()
             torch.cuda.synchronize()
             t_track = time.perf_counter() - t
+            check_native_batches(tr.dataset, "preprocess -> track")
             launches = {name: k.launches for name, k in kernels.items()}
             rgb_steps = sum(n for st, n in tr.steps_by_stage.items() if st.startswith("rgb"))
             evals = tr.eval_calls
@@ -2172,6 +2197,453 @@ def check_preprocess_track(kernels, smi_line):
         f"{t_pre + t_build + t_track:.2f} s = {(t_pre + t_build + t_track) / PRE_FRAMES:.3f} "
         f"s per frame; steps by stage {dict(tr.steps_by_stage)}, {evals} evaluation "
         f"renders; launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 26-29: the native frame loader, the synthetic trainers, the viewers
+# ---------------------------------------------------------------------------
+
+def check_native_batches(ds, where):
+    """A dataset the C++ loader covers took it on every batch of the run
+    (phases 19, 22 and 25)."""
+    if not ds.supports_native_batch():
+        raise RuntimeError(f"{where}: the dataset's configuration is not the native "
+                           f"loader's")
+    if not (ds.native_batches > 0 and ds.pil_batches == 0):
+        raise RuntimeError(f"{where}: {ds.native_batches} batches through the native "
+                           f"loader and {ds.pil_batches} through PIL; the loader "
+                           f"must take every batch")
+    log(f"[native] {where}: {ds.native_batches} batches through the native loader, "
+        f"{ds.pil_batches} through PIL")
+
+
+def log_stage_ms(where, stage_ms):
+    """The rgb stages' ms/step beside the figures before the native loader."""
+    prior = PRIOR_STAGE_MS[where]
+    ratio = lambda d: d["rgb_global_tracking"] / d["rgb_sequential_tracking"]
+    log(f"[native] {where}: " + ", ".join(
+        f"{st} {stage_ms[st]:.3f} ms/step (before the native loader: {prior[st]})"
+        for st in prior) + f"; global / sequential {ratio(stage_ms):.2f}x (before: "
+        f"{ratio(prior):.2f}x)")
+
+
+def write_camera_frames(seq_dir, size, seed=0):
+    """Overwrite a rig's frames and alpha maps with seeded JPEGs of `size`
+    (H, W): a lit gradient with a bright soft-edged blob, per-camera gains
+    and sensor noise, and the blob's alpha."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+    H, W = size
+    yy, xx = np.mgrid[:H, :W].astype(np.float32)
+    yy, xx = yy / H, xx / W
+    r = np.hypot(xx - 0.5, (yy - 0.45) * H / W)
+    alpha = np.clip((0.28 - r) / 0.02, 0, 1)[..., None]
+    bg = np.stack([0.3 + 0.4 * xx, 0.25 + 0.5 * yy, 0.6 - 0.3 * xx * yy], -1)
+    fg = np.stack([0.8 - 0.3 * r, 0.6 - 0.2 * r, 0.5 + 0.1 * np.sin(40 * xx)], -1)
+    img0 = bg * (1 - alpha) + fg * alpha
+    alpha_u8 = (alpha[..., 0] * 255).astype(np.uint8)
+
+    def write(i_path):
+        i, path = i_path
+        g = np.random.default_rng(seed + i)
+        img = img0 * g.uniform(0.9, 1.1, 3).astype(np.float32) \
+            + g.normal(0, 0.01, (H, W, 1)).astype(np.float32)
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path, quality=95)
+        Image.fromarray(alpha_u8).save(seq_dir / "alpha_maps" / path.name, quality=95)
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(write, enumerate(sorted((seq_dir / "images").glob("*.jpg")))))
+
+
+def loader_timing(root, scale_factor, reps):
+    """One timestep's views of the rig at root through the C++ loader
+    (median of reps calls) and through PIL (getitem_single_image per view),
+    colour-corrected, scaled, composited on white; the two within
+    NATIVE_TOL."""
+    import numpy as np
+
+    from vhap_tpu_torch.config.nersemble import NersembleDataConfig
+    from vhap_tpu_torch.data.nersemble_dataset import NeRSembleDataset
+    cfg = NersembleDataConfig(root_folder=root, subject="001", sequence="SEN-01",
+                              align_cameras_to_axes=False, use_color_correction=True,
+                              background_color="white", use_alpha_map=True,
+                              scale_factor=scale_factor, use_landmark=False)
+    ds = NeRSembleDataset(cfg, img_to_tensor=True)
+    idx = list(range(ds.num_cameras))
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        nat = ds.load_batch_native(idx)
+        times.append(time.perf_counter() - t)
+        if nat is None:
+            raise RuntimeError("the native loader returned no batch")
+    t = time.perf_counter()
+    items = [ds.getitem_single_image(i) for i in idx]
+    t_pil = time.perf_counter() - t
+    rgb, alpha = (np.stack([it[k] for it in items]) for k in ("rgb", "alpha_map"))
+    err, err_a = float(np.abs(nat[0] - rgb).max()), float(np.abs(nat[1] - alpha).max())
+    if not (nat[0].shape == rgb.shape and err <= NATIVE_TOL and err_a <= NATIVE_TOL):
+        raise RuntimeError(f"native batch {nat[0].shape} vs PIL {rgb.shape}: rgb error "
+                           f"{err}, alpha error {err_a} (bound {NATIVE_TOL:.5f})")
+    H, W = ds._resolve_image_hw()
+    return dict(frames=len(idx), src=(H, W), out=nat[0].shape[1:3],
+                native_ms=statistics.median(times) * 1e3, pil_ms=t_pil * 1e3,
+                err=err, err_a=err_a, share=float((nat[0] != rgb).mean()))
+
+
+def check_native_loader(smi_line):
+    """Phase 26: the C++ frame loader built from the checkout (a failed
+    build fails the run), one timestep of a 16-camera colour-corrected rig
+    at 512^2 and at NeRSemble's 3208 x 2200 (scale 0.25) through it and
+    through PIL: within NATIVE_TOL, ms per 16-frame batch of each."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import PIL
+
+    from vhap_tpu_torch.data import native_loader
+    from vhap_tpu_torch.tools.make_synthetic_multiview import generate_multiview
+    t = time.perf_counter()
+    so = native_loader.build()
+    t_build = time.perf_counter() - t
+    log(f"[native] {so.name} ready in {t_build:.2f} s (g++, linked against Pillow "
+        f"{PIL.__version__}'s {native_loader.pillow_libjpeg().name}, headers of "
+        f"libjpeg-turbo 2.1.5, JPEG_LIB_VERSION 62); {os.cpu_count()} host cores, "
+        f"4 loader threads")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        generate_multiview(root, n_cams=MV_CAMS, n_frames=1, size=512, device="cuda",
+                           color_correction=True)
+        rows = [loader_timing(root, 1.0, reps=5)]
+        t = time.perf_counter()
+        write_camera_frames(root / "001" / "SEN-01", NATIVE_FRAME)
+        t_write = time.perf_counter() - t
+        rows.append(loader_timing(root, NATIVE_SCALE, reps=3))
+    log(f"[native] times below on {smi_line}; {NATIVE_FRAME[0]}x{NATIVE_FRAME[1]} "
+        f"frames written in {t_write:.2f} s")
+    for r in rows:
+        log(f"[native] {r['frames']} views {r['src'][0]}x{r['src'][1]} -> "
+            f"{r['out'][0]}x{r['out'][1]} (colour correction, white background): "
+            f"native {r['native_ms']:.3f} ms per batch (median), PIL "
+            f"{r['pil_ms']:.3f} ms ({r['pil_ms'] / r['native_ms']:.2f}x); max |d| rgb "
+            f"{r['err']:.6f}, alpha {r['err_a']:.6f} (bound {NATIVE_TOL:.6f}), "
+            f"{r['share']:.4%} of rgb values differ")
+    return rows
+
+
+@contextlib.contextmanager
+def capture_vis(*modules):
+    """Record the arguments of the newest render_rgba_vis call that each
+    module makes inside the block (it still renders): [(args, kwargs)]."""
+    captured, originals = [], [m.render_rgba_vis for m in modules]
+
+    def wrap(fn):
+        def render(*args, **kwargs):
+            captured[:] = [(args, kwargs)]
+            return fn(*args, **kwargs)
+        return render
+
+    for m, fn in zip(modules, originals):
+        m.render_rgba_vis = wrap(fn)
+    try:
+        yield captured
+    finally:
+        for m, fn in zip(modules, originals):
+            m.render_rgba_vis = fn
+
+
+def same_outputs(a, b):
+    """Max |a - b| with NaN where both are NaN taken as equal; inf where
+    only one is."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(nan_a, nan_b):
+        return float("inf")
+    return float((a - b).abs().masked_fill(nan_a, 0).max())
+
+
+def check_k3(where, args):
+    """K3 alone at one launch's arguments (flat1, uv, uv_da, mask, offsets,
+    sizes), on a path that takes no texture gradient: check_sampler's K3
+    gate (out within 1e-5 absolute, 0 pixels whose taps differ from
+    trilinear_taps'). Returns the error and the kernel's and plain
+    version's calls."""
+    from vhap_tpu_torch.ops.texture_fetch import (trilinear_sample,
+                                                  trilinear_sample_plain,
+                                                  trilinear_taps, trilinear_taps_card)
+    flat1, uv, uv_da, mask, offsets, sizes = args[:6]
+    size = tuple(sizes[0])
+    kernel = lambda: trilinear_sample(flat1, size, offsets, sizes, uv, uv_da, mask)
+    plain = lambda: trilinear_sample_plain(flat1, size, offsets, sizes, uv, uv_da, mask)
+    with torch.no_grad():
+        err = float((kernel() - plain()).abs().max())
+        idx_k, _ = trilinear_taps_card(size, offsets, sizes, uv, uv_da, mask)
+        idx, _ = trilinear_taps(size, offsets, sizes, uv, uv_da, mask)
+    n_other = int((idx_k != idx).any(dim=1).sum())
+    if not (err <= 1e-5 and n_other == 0):
+        raise RuntimeError(f"K3 at {where}: out error {err} (1e-5), {n_other} "
+                           f"pixels with other taps than the plain version's")
+    return err, kernel, plain
+
+
+def check_vis_launch(where, call, sampled):
+    """K5, K6 forward and K3 at one render_rgba_vis call's inputs: the
+    render through the kernels against use_kernels=False (every output
+    within 1e-5), tri_id identical to visibility_plain, each of the
+    render's plane gathers bit-identical to plane_gather_plain, K3 at the
+    render's own sampler launch (check_k3); each kernel's and plain
+    version's CUDA-event ms there."""
+    from dataclasses import replace
+
+    from vhap_tpu_torch.ops import camera as cam
+    from vhap_tpu_torch.ops.antialias import aa_tables
+    from vhap_tpu_torch.ops.plane_gather import plane_gather, plane_gather_plain
+    from vhap_tpu_torch.ops.rasterize import (_Visibility, corner_tables, face_setup,
+                                              pack_setup_rows, rast_tables, rasterize,
+                                              visibility_plain)
+    from vhap_tpu_torch.ops.render import render_rgba_vis
+    from vhap_tpu_torch.ops.shading import compute_v_normals
+    args, kw = call
+    verts, faces, RT, K, (H, W), settings = args[:6]
+    with torch.no_grad():
+        out_k = render_rgba_vis(*args, **kw)
+        out_p = render_rgba_vis(*args[:5], replace(settings, use_kernels=False),
+                                *args[6:], **kw)
+        errs = {k: same_outputs(out_k[k], out_p[k]) for k in out_k}
+        if not max(errs.values()) <= 1e-5:
+            raise RuntimeError(f"vis render at {where}: kernels vs plain {errs}")
+        clip = cam.world_to_clip(verts, RT, K, (H, W))
+        cull = settings.cull_backfaces
+        tri_id = rasterize(clip, faces, (H, W), cull)[2]
+        tri_p, _ = visibility_plain(clip, faces, H, W, cull)
+        n_diff = int((tri_id != tri_p).sum())
+        if n_diff:
+            raise RuntimeError(f"K5 at {where}: tri_id differs on {n_diff} pixels")
+        albedo = (corner_tables(kw["verts_uv"][None], kw["faces_uv"])
+                  if kw.get("tex") is not None else
+                  corner_tables(kw["v_color"].reshape(-1, verts.shape[1], 3), faces))
+        aa, vid = aa_tables(clip, faces)
+        tables = {"rast planes": rast_tables(clip, faces),
+                  "corner normals": corner_tables(compute_v_normals(verts, faces), faces),
+                  "corner albedo": albedo, "AA planes": aa, "vertex ids": vid}
+        for name, tab in tables.items():
+            if not torch.equal(plane_gather(tab, tri_id), plane_gather_plain(tab, tri_id)):
+                raise RuntimeError(f"K6 forward at {where} differs from its plain version "
+                                   f"at the {name} ({tuple(tab.shape)})")
+    rows = pack_setup_rows(face_setup(clip, faces, cull))
+    planes = tables["rast planes"]
+    ms = {"K5": (cuda_ms(lambda: _Visibility.apply(rows, H, W)),
+                 cuda_ms(lambda: visibility_plain(clip, faces, H, W, cull), reps=3, warmup=1)),
+          "K6f rast planes": (cuda_ms(lambda: plane_gather(planes, tri_id)),
+                              cuda_ms(lambda: plane_gather_plain(planes, tri_id)))}
+    note = "no texture"
+    if sampled["fwd"]:
+        err, kernel, plain = check_k3(where, sampled["fwd"][-1])
+        ms["K3"] = (cuda_ms(kernel), cuda_ms(plain, reps=3, warmup=1))
+        note = f"K3 abs err {err:.3g}, 0 pixels with other taps"
+    log(f"[vis] {where}: B{verts.shape[0]} {H}x{W}, F={faces.shape[0]}: render vs "
+        f"use_kernels=False max |d| {max(errs.values()):.3g}; K5 tri_id identical "
+        f"({int((tri_id > 0).sum())} covered pixels); K6 forward bit-identical at "
+        + ", ".join(f"{n} C={t.shape[1]}" for n, t in tables.items()) + f"; {note}; "
+        + ", ".join(f"{k} {a:.4f} ms (plain {b:.4f})" for k, (a, b) in ms.items()))
+
+
+def check_path_launches(where, launches, renders, textured=True):
+    """K5 (and K3 on a textured render) once per render, K6 forward a
+    whole number of times per render."""
+    want = {"K5 visibility": renders, "K3 trilinear_sample": renders if textured else 0}
+    per = launches["K6f plane_gather"] / renders
+    if any(launches[k] != n for k, n in want.items()) or per != int(per) or per < 1:
+        raise RuntimeError(f"{where}: launches {launches} in {renders} renders")
+    log(f"[{where}] launches in {renders} renders: {launches} (K6 forward {int(per)} "
+        f"per render)")
+
+
+def asset_hashes():
+    """sha256 of the bundled preprocess weights."""
+    import hashlib
+    from pathlib import Path
+    assets = Path(__file__).resolve().parent / "vhap_tpu_torch" / "assets"
+    return {name: hashlib.sha256((assets / name).read_bytes()).hexdigest()
+            for name in ("fan_weights.npz", "matting_weights.npz")}
+
+
+def check_trainer(tool, kernels, smi_line):
+    """Phases 27-28: a synthetic trainer through its main() at the tool's
+    full width, TRAIN_STEPS deep, writing under build/, counts zeroed before
+    and read after; K5, K6 forward and K3 at its last render; ms per step
+    split into the render (with the crop and augmentation) and the
+    network's forward, backward and Adam; device ms per step
+    (torch.profiler over 10 more steps); peak memory above the resident;
+    the held-out error;
+    the written weights through the port's detector or matting class."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from vhap_tpu_torch.preprocess.landmarks import LandmarkDetectorFANNet
+    from vhap_tpu_torch.preprocess.matting import MattingUNet
+    from vhap_tpu_torch.tools import train_fan_synthetic as tf
+    from vhap_tpu_torch.tools import train_matting_synthetic as tm
+    steps = TRAIN_STEPS[tool]
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke" / f"{tool}_weights.npz"
+    for k in kernels.values():
+        k.launches = 0
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with capture_sampler(keep_last=True) as sampled, capture_vis(tf) as rendered, \
+            contextlib.redirect_stdout(io.StringIO()) as printed:
+        tr = (tf if tool == "fan" else tm).main(
+            ["--steps", str(steps), "--batch", str(TRAIN_BATCH), "--out", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - resident
+    launches = {name: k.launches for name, k in kernels.items()}
+    result = printed.getvalue().strip().splitlines()[-1]
+    if not result.startswith("RESULT: err=") or not np.isfinite(tr.err):
+        raise RuntimeError(f"{tool} trainer printed {result!r}, err {tr.err}")
+    # renders: the steps, the FAN's 16 BN-statistics batches, 4 held-out batches
+    renders = steps + (16 if tool == "fan" else 0) + 4
+    check_path_launches(f"{tool}_train", launches, renders)
+    check_vis_launch(f"the {tool} trainer's last render", rendered[0], sampled)
+    del sampled, rendered
+    split = device_split(tr.step, reps=10)
+    dev_ms = sum(split.values()) if split else None
+    img = (tr.render(tr.sample())[0] if tool == "fan" else
+           tr.render(*tr.sample())[0])[0].cpu().numpy()
+    if tool == "fan":
+        det = LandmarkDetectorFANNet(str(out)).detect_single_image(
+            (img * 255).astype(np.uint8))
+        loaded = f"LandmarkDetectorFANNet ran on a held-out render ({type(det).__name__})"
+    else:
+        alpha = MattingUNet(str(out)).predict(img)
+        loaded = f"MattingUNet predicted a held-out alpha {alpha.shape}"
+    dev = ("not measured (the profiler recorded no device op)" if dev_ms is None
+           else f"{dev_ms:.3f} ms")
+    log(f"[{tool}_train] times below on {smi_line}")
+    log(f"[{tool}_train] {steps} steps at batch {TRAIN_BATCH}, {tf.IMG_SIZE}^2: "
+        f"{wall:.2f} s in all ({'BN statistics, ' if tool == 'fan' else ''}held-out "
+        f"error and save included); per step "
+        f"{(tr.render_s + tr.net_s) / steps * 1e3:.3f} ms = render "
+        f"{tr.render_s / steps * 1e3:.3f} + network forward, backward and Adam "
+        f"{tr.net_s / steps * 1e3:.3f}; device {dev} per step; peak memory "
+        f"{peak / 2**30:.3f} GiB above the resident {resident / 2**30:.3f}; held-out "
+        f"error {tr.err:.4f}"
+        f"{' px (batch 1, stored BN statistics)' if tool == 'fan' else ' (mean |d alpha|)'}; "
+        f"{result}; {out.name} written, {loaded}")
+    return launches
+
+
+def check_viewers(kernels, ckpt, asset_dir, smi_line):
+    """Phase 29: flame_viewer's main() on phase 22's tracked archive with the
+    teeth head at 768^2 (PNG frames; no mp4 without ffmpeg) and
+    flame_editor's main() jaw sweep, counts zeroed before and read after
+    each; K5, K6 forward and K3 at the last render; every viewer frame and
+    the sweep against the same call with use_kernels=False, frames not
+    blank; a highlighted region; ms per frame."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    from vhap_tpu_torch import flame_editor, flame_viewer
+
+    def same_frames(where, a, b):
+        d = np.abs(a.astype(int) - b.astype(int))
+        share = float((d > 0).mean())
+        if not (a.shape == b.shape and d.max() <= VIEW_LEVELS and share <= VIEW_SHARE):
+            raise RuntimeError(f"{where}: card vs use_kernels=False differ by up to "
+                               f"{d.max()} levels on {share:.3%} of the values")
+        return int(d.max()), share
+
+    def not_blank(where, frame):
+        fg = float((frame < 250).any(-1).mean())
+        if not (fg > 0.02 and frame.std() > 5):
+            raise RuntimeError(f"{where}: a blank frame (foreground share {fg})")
+        return fg
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        with capture_sampler(keep_last=True) as sampled, \
+                capture_vis(flame_viewer) as rendered:
+            viewer = flame_viewer.main(["--param_path", str(ckpt), "--out_dir",
+                                        str(root / "viewer"), "--model.asset_dir",
+                                        str(asset_dir), "--video"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches["viewer"] = {name: k.launches for name, k in kernels.items()}
+        T = viewer.n_timesteps
+        pngs = sorted((root / "viewer" / "frames").glob("*.png"))
+        mp4 = (root / "viewer" / "sequence.mp4").exists()
+        if len(pngs) != T or mp4 != bool(shutil.which("ffmpeg")):
+            raise RuntimeError(f"viewer wrote {len(pngs)} PNGs of {T}, mp4 {mp4}")
+        check_path_launches("viewer", launches["viewer"], T)
+        check_vis_launch("the viewer's last frame", rendered[0], sampled)
+        del sampled, rendered
+        frames = [np.asarray(Image.open(p)) for p in pngs]
+        fg = [not_blank(f"viewer frame {t}", f) for t, f in enumerate(frames)]
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            viewer.render_frame(0)
+            times.append(time.perf_counter() - t)
+        viewer.settings = replace(viewer.settings, use_kernels=False)
+        diffs = [same_frames(f"viewer frame {t}", frames[t], viewer.render_frame(t))
+                 for t in range(T)]
+        log(f"[viewer] times below on {smi_line}")
+        log(f"[viewer] main(): {T} frames of {ckpt.name} at {viewer.H}x{viewer.W}, head "
+            f"V={viewer.head.num_verts} F={viewer.head.num_faces} (teeth), texture "
+            f"{tuple(viewer.tex.shape[-2:])}, in {wall:.2f} s = {wall / T * 1e3:.1f} ms "
+            f"per frame (PNG included; head built once); render_frame "
+            f"{statistics.median(times) * 1e3:.3f} ms (median of 5); foreground share "
+            f"{min(fg):.3f}-{max(fg):.3f}; against use_kernels=False at most "
+            f"{max(d for d, _ in diffs)} level on {max(s for _, s in diffs):.4%} of "
+            f"the values; mp4 {'written' if mp4 else 'skipped (no ffmpeg)'}")
+
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        with capture_sampler(keep_last=True) as sampled, \
+                capture_vis(flame_editor) as rendered:
+            ed = flame_editor.main(["--out", str(root / "editor"), "--param", "jaw",
+                                    "--model.asset_dir", str(asset_dir)])
+        torch.cuda.synchronize()
+        t_sweep = time.perf_counter() - t
+        launches["editor"] = {name: k.launches for name, k in kernels.items()}
+        n = 7                                        # the CLI's default sweep
+        check_path_launches("editor", launches["editor"], n, textured=False)
+        check_vis_launch("the editor's last frame", rendered[0], sampled)
+        del sampled, rendered
+        grid = np.asarray(Image.open(root / "editor" / "sweep_jaw.png"))
+        W = ed.W
+        if grid.shape != (ed.H, n * W, 3) or np.array_equal(grid[:, :W], grid[:, -W:]):
+            raise RuntimeError(f"editor sweep {grid.shape}: the jaw did not move")
+        not_blank("editor sweep", grid[:, :W])
+        ed.settings = replace(ed.settings, use_kernels=False)
+        d_sweep = same_frames("editor sweep", grid, ed.render_sweep(
+            root / "editor_plain", "jaw", -0.3, 0.3, n))
+        hl = flame_editor.FlameEditor(asset_dir=asset_dir, highlight_region="face")
+        img = hl.render()
+        red = float(((img[..., 0] > img[..., 1] + 60) & (img[..., 0] > 150)).mean())
+        hl.settings = replace(hl.settings, use_kernels=False)
+        same_frames("editor highlight", img, hl.render())
+        if not red > 0.01:
+            raise RuntimeError(f"editor: the highlighted face region covers {red} of the frame")
+    log(f"[editor] main() jaw sweep of {n} frames at {ed.H}x{ed.W} in {t_sweep:.2f} s "
+        f"= {t_sweep / n * 1e3:.1f} ms per frame (head built once, PNG included); "
+        f"against use_kernels=False at most {d_sweep[0]} level on {d_sweep[1]:.4%} "
+        f"of the values; highlight 'face' on {red:.3f} of the frame")
     return launches
 
 
@@ -2386,11 +2858,29 @@ def main() -> int:
         check_export(run_dir, mv_root)
         lap("23 (export, combine)")
 
-    # ---- 24. the preprocess networks; 25. preprocess -> track ----
-    check_preprocess_nets(smi_line)
-    lap("24 (preprocess networks)")
-    paths["preprocess → track"] = check_preprocess_track(train_kernels, smi_line)
-    lap("25 (preprocess -> track)")
+        # ---- 24. the preprocess networks; 25. preprocess -> track ----
+        check_preprocess_nets(smi_line)
+        lap("24 (preprocess networks)")
+        paths["preprocess → track"] = check_preprocess_track(train_kernels, smi_line)
+        lap("25 (preprocess -> track)")
+
+        # ---- 26. the native loader; 27-28. the trainers; 29. the viewers ----
+        check_native_loader(smi_line)
+        lap("26 (native frame loader)")
+        render_kernels = {k: vis_kernels[k] for k in
+                          ("K5 visibility", "K6f plane_gather", "K3 trilinear_sample")}
+        hashes = asset_hashes()
+        paths["fan_train"] = check_trainer("fan", render_kernels, smi_line)
+        lap("27 (FAN trainer)")
+        paths["matting_train"] = check_trainer("matting", render_kernels, smi_line)
+        if asset_hashes() != hashes:
+            raise RuntimeError("the trainers changed the bundled weights")
+        log("[assets] bundled weights unchanged: " + ", ".join(
+            f"{k} sha256 {v}" for k, v in hashes.items()))
+        lap("28 (matting trainer)")
+        ckpt = sorted(run_dir.glob("tracked_flame_params_*.npz"))[-1]
+        paths.update(check_viewers(render_kernels, ckpt, mv_root / "assets", smi_line))
+        lap("29 (viewer, editor)")
     log(f"[done] run {time.perf_counter() - t0:.1f} s")
 
     for row in rows_out:

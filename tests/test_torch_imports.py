@@ -141,3 +141,28 @@ def test_vis_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_vis_slice(batch_size=1, image_size=(8, 8), tex_res=8,
                         n_shape=2, n_expr=2)
+
+
+def test_trainer_and_viewer_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """The synthetic trainers, the viewer and the editor build on the card
+    unless given device='cpu' (--device cpu)."""
+    from vhap_tpu_torch import flame_editor, flame_viewer
+    from vhap_tpu_torch.tools import train_fan_synthetic, train_matting_synthetic
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (train_fan_synthetic.FanTrainer,
+                 train_matting_synthetic.MattingTrainer,
+                 lambda: train_fan_synthetic.main(["--steps", "1", "--out",
+                                                   str(tmp_path / "f.npz")]),
+                 lambda: flame_viewer.FlameViewer(tmp_path / "none.npz"),
+                 lambda: flame_editor.main(["--out", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_native_loader_builds_outside_the_package():
+    """The frame loader's library goes to build/native at the repository
+    root, never into a package directory, and importing the port built
+    nothing."""
+    from vhap_tpu_torch.data import native_loader
+    assert native_loader.BUILD_DIR == REPO / "build" / "native"
+    assert not list(PORT.rglob("*.so"))

@@ -85,14 +85,15 @@ def test_annotate_landmarks_matches_jax(frames, tmp_path):
 
 class FakeDetector:
     """Deterministic stand-in: landmarks on a grid, no face on the second
-    frame."""
+    frame (known by its pixels, so that the annotator's threads may call in
+    any order)."""
 
-    def __init__(self, no_face):
-        self.calls, self.no_face = 0, no_face
+    def __init__(self, no_face, frames):
+        self.no_face = no_face
+        self.no_face_img = np.array(Image.open(sorted((frames / "images").glob("*.jpg"))[1]))
 
     def detect_single_image(self, img):
-        self.calls += 1
-        if self.calls == 2:
+        if np.array_equal(img, self.no_face_img):
             return self.no_face
         xy = np.stack([np.linspace(0.2, 0.8, 68), np.linspace(0.3, 0.7, 68)], -1)
         lmks = np.concatenate([xy, np.ones((68, 1))], -1).astype(np.float32)
@@ -113,9 +114,9 @@ def test_annotate_with_a_given_detector_matches_jax(frames, tmp_path):
     assert tl.SOURCE_DIRS == jl.SOURCE_DIRS and set(tl._DETECTORS) == set(jl._DETECTORS)
     jroot, troot = copy_seq(frames, tmp_path / "jax"), copy_seq(frames, tmp_path / "port")
     jl.annotate_landmarks(JData(data_cfg(JConfig, jroot)), source="star",
-                          detector=FakeDetector((jl.NO_FACE_BBOX, jl.NO_FACE_LMKS)))
+                          detector=FakeDetector((jl.NO_FACE_BBOX, jl.NO_FACE_LMKS), frames))
     tl.annotate_landmarks(TData(data_cfg(TConfig, troot)), source="star", n_jobs=2,
-                          detector=FakeDetector((tl.NO_FACE_BBOX, tl.NO_FACE_LMKS)))
+                          detector=FakeDetector((tl.NO_FACE_BBOX, tl.NO_FACE_LMKS), frames))
     out = Path(SEQ) / "landmark2d" / "STAR.npz"
     assert_same_npz(troot / out, jroot / out)
     cfg = data_cfg(TConfig, troot)
@@ -193,7 +194,7 @@ def test_tracker_reuses_landmarks(frames, tmp_path, monkeypatch):
     root = copy_seq(frames, tmp_path)
     landmarks.annotate_landmarks(
         VideoDataset(data_cfg(TConfig, root)), source="fan-jax",
-        detector=FakeDetector((landmarks.NO_FACE_BBOX, landmarks.NO_FACE_LMKS)))
+        detector=FakeDetector((landmarks.NO_FACE_BBOX, landmarks.NO_FACE_LMKS), frames))
     monkeypatch.setattr(landmarks, "annotate_landmarks",
                         lambda *a, **k: pytest.fail("detected again"))
     tr = GlobalTracker(tracker_cfg(TConfig, root), device="cpu")

@@ -94,6 +94,47 @@ def unet_params_to_torch(params: Mapping[str, object]) -> Dict[str, torch.Tensor
     return _checked_state(params, "matting U-Net", ("base", "levels", "in_ch"))
 
 
+def _state_tree(state: Mapping[str, torch.Tensor], meta: Mapping[str, int]) -> Dict:
+    """The inverse of _tree_state: a module's state dict -> its parameter
+    tree (numpy, in the state's dtype; OIHW kernels back to HWIO, a norm's
+    weight, bias and running statistics to scale, bias, mean and var, a
+    conv's bias to `<name>_bias`), with `meta` copied."""
+    modules: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in state.items():
+        path, _, field = key.rpartition(".")
+        modules.setdefault(path, {})[field] = value.detach().cpu().numpy()
+    tree: Dict = {"meta": dict(meta)}
+    for path, fields in modules.items():
+        *parents, name = path.split(".")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        w = fields["weight"]
+        if w.ndim == 4:
+            node[name] = w.transpose(2, 3, 1, 0).copy()
+            if "bias" in fields:
+                node[f"{name}_bias"] = fields["bias"]
+        else:
+            node[name] = {dst: fields[src] for src, dst in (
+                ("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                ("running_var", "var")) if src in fields}
+    return tree
+
+
+def fan_params_from_torch(state: Mapping[str, torch.Tensor],
+                          meta: Mapping[str, int]) -> Dict:
+    """The inverse of fan_params_to_torch: a `preprocess.fan.FAN` state dict
+    and its meta -> the parameter tree that both packages' save_fan_params
+    and load_fan_params use."""
+    return _state_tree(state, meta)
+
+
+def unet_params_from_torch(state: Mapping[str, torch.Tensor],
+                           meta: Mapping[str, int]) -> Dict:
+    """The inverse of unet_params_to_torch (as fan_params_from_torch)."""
+    return _state_tree(state, meta)
+
+
 def params_from_numpy(np_params: Mapping[str, object], device=None) -> Params:
     """A parameter dict of array-likes (e.g. `{k: np.asarray(v)}` of the JAX
     package's params) -> the port's dict of float32 tensors on `device`."""

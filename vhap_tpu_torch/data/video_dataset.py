@@ -5,8 +5,11 @@ vhap/data/video_dataset.py): same folder layout (images/, alpha_maps/,
 landmark2d/{face-alignment,STAR,...}), same subset DSL (ti/tj/tn/ts +
 ci/cn/cs), same guessed intrinsics for uncalibrated video, same transforms
 (scale factor, background colour). Samples are channel-last float arrays
-ready for upload to the device. Frames are decoded with PIL; the JAX
-package's native batch decoder (a host-side C++ JPEG loader) is not ported.
+ready for upload to the device. A batch of frames is decoded, colour
+corrected, resized and composited by the native C++ loader
+(data/native_loader.py) when the configuration qualifies
+(`supports_native_batch`) and the loader builds, else frame by frame with
+PIL; `native_batches` and `pil_batches` count which path each batch took.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ class VideoDataset:
         self.cfg = cfg
         self.img_to_tensor = img_to_tensor  # channel-last float [0,1]
         self.batchify_all_views = batchify_all_views
+        self.native_batches = 0   # batches the C++ loader decoded
+        self.pil_batches = 0      # batches decoded frame by frame with PIL
 
         sequence_paths = self.match_sequences()
         if len(sequence_paths) > 1:
@@ -177,6 +182,48 @@ class VideoDataset:
             for i, cid in enumerate(self.camera_ids)}
         return self.camera_params
 
+    # -- fast batch path (native loader) ---------------------------------------
+
+    def supports_native_batch(self) -> bool:
+        """The C++ loader covers the full transform chain (decode,
+        per-camera affine colour correction, PIL-BILINEAR scale_factor
+        resize, background composite), so every jpg-backed configuration
+        qualifies (NeRSemble with use_color_correction and scale_factor
+        included)."""
+        return (self.img_to_tensor
+                and self.cfg.scale_factor <= 1.0
+                and self.properties["rgb"]["suffix"] == "jpg")
+
+    def load_batch_native(self, indices):
+        """Threaded decode + colour correction + resize + composite of a
+        batch of items -> (rgb float32 (n, h, w, 3), alpha (n, h, w)), or
+        None when the configuration does not qualify, the loader is
+        unavailable or a frame fails (the caller then takes PIL)."""
+        if not self.supports_native_batch():
+            return None
+        from vhap_tpu_torch.data import native_loader
+        rgb_paths = [str(self.get_property_path("rgb", i)) for i in indices]
+        use_alpha = self.cfg.use_alpha_map or self.cfg.background_color is not None
+        alpha_paths = ([str(self.get_property_path("alpha_map", i))
+                        for i in indices] if use_alpha else None)
+        bg = {None: None, "white": (1.0, 1.0, 1.0),
+              "black": (0.0, 0.0, 0.0)}[self.cfg.background_color]
+        H, W = self._resolve_image_hw(rgb_paths[0])
+        h, w = int(H * self.cfg.scale_factor), int(W * self.cfg.scale_factor)
+        cc = None
+        if getattr(self.cfg, "use_color_correction", False):
+            mats = [np.asarray(self.color_correction[
+                self.items[i]["camera_id"]], np.float64) for i in indices]
+            if any(m.ndim != 2 or m.shape[0] not in (3, 4) or m.shape[1] != 4
+                   for m in mats):
+                return None  # non-affine CC (NeRSemble v2 CCM): PIL path
+            cc = np.stack([m[:3, :4] for m in mats])
+        out = native_loader.load_batch(rgb_paths, alpha_paths, h, w, bg,
+                                       color_correction=cc)
+        if out is not None:
+            self.native_batches += 1
+        return out
+
     _image_hw = None
 
     def _resolve_image_hw(self, sample_path=None):
@@ -246,10 +293,36 @@ class VideoDataset:
 
         return self.apply_transforms(item)
 
+    def getitem_meta(self, i):
+        """getitem_single_image without the image IO: camera parameters and
+        landmarks with the same scale transforms (the native batch loader
+        supplies rgb and alpha)."""
+        item = deepcopy(self.items[i])
+        camera_param = self.camera_params[item["camera_id"]]
+        item["intrinsic"] = camera_param["intrinsic"].copy()
+        item["extrinsic"] = camera_param["extrinsic"].copy()
+        if self.cfg.use_landmark:
+            item["lmk2d"] = self.load_lmk2d(i)
+        n_downsample = self.cfg.n_downsample_rgb or 1
+        scale_factor = self.cfg.scale_factor / n_downsample
+        item["scale_factor"] = scale_factor
+        if scale_factor < 1.0:
+            item["intrinsic"][:2] *= scale_factor
+        return item
+
     def getitem_by_timestep(self, timestep_index):
         begin = timestep_index * self.num_cameras
         idx = list(range(begin, begin + self.num_cameras))
-        item = default_collate([self.getitem_single_image(i) for i in idx])
+        native = self.load_batch_native(idx)
+        if native is not None:
+            # C++ decode/CC/resize/composite; Python only for metadata
+            item = default_collate([self.getitem_meta(i) for i in idx])
+            item["rgb"] = native[0]
+            if self.cfg.use_alpha_map:
+                item["alpha_map"] = native[1]
+        else:
+            item = default_collate([self.getitem_single_image(i) for i in idx])
+            self.pil_batches += 1
         item["num_cameras"] = self.num_cameras
         return item
 

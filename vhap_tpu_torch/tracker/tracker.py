@@ -272,17 +272,29 @@ class GlobalTracker:
         pad = bs - len(indices)
         idx = list(indices) + [indices[-1]] * pad
         weight = np.asarray([1.0] * len(indices) + [0.0] * pad, np.float32)
-        items = [self.dataset[i] for i in idx]
+        # the C++ loader where the dataset qualifies, else PIL frame by frame
+        # (vhap_tpu/tracker/tracker.py:229-240)
+        native = (self.dataset.load_batch_native(idx)
+                  if hasattr(self.dataset, "load_batch_native") else None)
+        if native is not None:
+            rgb = native[0]
+            ts = [self.dataset.items[i]["timestep_index"] for i in idx]
+            lmks = ([self.dataset.load_lmk2d(i) for i in idx]
+                    if self.cfg.data.use_landmark else None)
+        else:
+            items = [self.dataset[i] for i in idx]
+            if hasattr(self.dataset, "pil_batches"):
+                self.dataset.pil_batches += 1
+            rgb = np.stack([it["rgb"] for it in items])
+            ts = [it["timestep_index"] for it in items]
+            lmks = [it["lmk2d"] for it in items] if "lmk2d" in items[0] else None
         batch = {
-            "rgb": torch.from_numpy(np.stack([it["rgb"] for it in items])
-                                    .astype(np.float32, copy=False)),
-            "timestep_index": torch.from_numpy(np.asarray(
-                [it["timestep_index"] for it in items], np.int32)),
+            "rgb": torch.from_numpy(rgb.astype(np.float32, copy=False)),
+            "timestep_index": torch.from_numpy(np.asarray(ts, np.int32)),
             "weight": torch.from_numpy(weight),
         }
-        if "lmk2d" in items[0]:
-            batch["lmk2d"] = torch.from_numpy(
-                np.stack([it["lmk2d"] for it in items]).astype(np.float32))
+        if lmks is not None:
+            batch["lmk2d"] = torch.from_numpy(np.stack(lmks).astype(np.float32))
         return self._pin(batch)
 
     def _pin(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
