@@ -6,10 +6,11 @@ sampler, the tracker loop, the NeRSemble path (the calibrated 16-view
 step with the teeth head, track_nersemble, and the NeRF-dataset export),
 preprocess (the FAN, STAR and matting networks, then a video through
 preprocess, annotation inside the tracker and tracking), the native frame
-loader, the synthetic FAN and matting trainers, and the headless viewer and
-editor.
+loader, the synthetic FAN and matting trainers, the headless viewer and
+editor, and batch-axis data parallelism (parallel/sharding.py).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase, one card
+    python3 chip_smoke.py --multi-card  # phases 1-2 and 30d alone
 
 Runs vhap_tpu_torch's evaluation energy (the render and energy of one
 tracking step, forward) and one `rgb_sequential_tracking` train step
@@ -153,7 +154,9 @@ Phases (any failure ends the run with a non-zero exit):
      K2b and K4 once per rgb step; K3 and K4 checked at the last rgb
      step's launch); GT recovery (mean |d translation| < 0.02, mean |d
      rotation| < 0.08), no focal_length in the npz, timestep 0's eval
-     energy below its value at the initial parameters; every batch through
+     energy below its value at the initial parameters (main() returns the
+     run's summary: the run state is read into a second tracker of the
+     same config for that energy); every batch through
      the native loader (colour correction in C++), the rgb stages' ms/step
      beside PRIOR_STAGE_MS;
  23. export_as_nerf_dataset of that run (FLAME on the card, the mask from
@@ -216,6 +219,25 @@ Phases (any failure ends the run with a non-zero exit):
      kernels at the last render as in 27; every frame not blank and
      within VIEW_LEVELS on VIEW_SHARE of the values of the same call with
      use_kernels=False; a highlighted region; ms per frame;
+ 30. batch-axis data parallelism (parallel/sharding.py) on phase 21's rig:
+     30a two gloo ranks on cuda:0 (sharding.launch), each the 16-view step
+     on its 8 views (tools/multiview_slice.py on the process group): with
+     the disturbance off, E (the sum of the ranks' shares) within 1e-5
+     relative and every all-reduced gradient within 1e-3 * max|g| of the
+     one-process step on the same card, the gradients bit-identical across
+     ranks; on rank 0, K1 identical to its plain version and K3 within
+     1e-5 at the rank's own eval-step launch; then SHARD_STEPS steps with
+     the disturbance on, counts zeroed before and read after (K1..K4 once
+     per step on each rank), the parameters bit-identical across ranks;
+     each rank's ms per step and peak memory, all_reduce_grads' bytes and
+     ms; 30b GlobalTracker with track_nersemble's config at phase 22's
+     depth on the two gloo ranks (counts per rank as in 22, every batch
+     native, multiview GT recovery at phase 22's gate, rank 0's folder
+     with phase 22's file names), then a resume from the run state after
+     the sequential phase (the global stage alone, recovery again); 30c
+     NCCL at world 1 through the same launcher, at 30a's gates; 30d NCCL
+     across min(4, count) cards at 30a's gates where there are two or
+     more, else a line saying it was not run;
 each phase group's seconds are printed as it ends, and each kernel's time
 beside the previous kernels' time, a constant (PRIOR_MS); then one JSON
 line of the kernels (each row's `launches` from the train step, and
@@ -233,6 +255,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -1678,36 +1701,45 @@ def check_track_nersemble(root, kernels):
     K2f, K3 once per rgb step and evaluation render, K2b and K4 once per rgb
     step. GT recovery (mean |d translation| < 0.02, mean |d rotation| <
     0.08), no focal length in the npz, the eval energy of timestep 0 falls
-    from the initial parameters. Returns the launches and the run folder."""
+    from the initial parameters to the run state's (read into a second
+    tracker of the same config). Returns the launches and the run folder."""
     import contextlib
     import io
 
     import numpy as np
 
     from vhap_tpu_torch import track_nersemble
+    from vhap_tpu_torch.config.cli import parse_cli
+    from vhap_tpu_torch.config.nersemble import NersembleTrackingConfig
     from vhap_tpu_torch.tools.loader_ab import mv_argv
     from vhap_tpu_torch.tracker import params as P
+    from vhap_tpu_torch.tracker.tracker import GlobalTracker
     argv = mv_argv(root, root / "track")
     for k in kernels.values():
         k.launches = 0
     t = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as yml, \
             capture_sampler(keep_last=True) as sampled:
-        tr = track_nersemble.main(argv)
+        info = track_nersemble.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {name: k.launches for name, k in kernels.items()}
-    rgb_steps = sum(n for st, n in tr.steps_by_stage.items() if st.startswith("rgb"))
-    evals = tr.eval_calls
-    cfg = tr.cfg
+    rgb_steps = sum(n for st, n in info["steps_by_stage"].items() if st.startswith("rgb"))
+    evals = info["eval_calls"]
+    out_dir = Path(info["out_dir"])
+    # the run's config in a tracker of its own, holding the run's result
+    cfg = parse_cli(NersembleTrackingConfig,
+                    mv_argv(root, root / "track_check") + ["--device", "cuda"])
+    tr = GlobalTracker(cfg)
+    tr.load_run_state(out_dir / "run_state.npz")
     log(f"[nersemble] track_nersemble.main (its config printed, "
-        f"{len(yml.getvalue().splitlines())} lines): {tr.n_timesteps} timesteps x "
+        f"{len(yml.getvalue().splitlines())} lines): {info['n_timesteps']} timesteps x "
         f"{tr.dataset.num_cameras} views at {tr.image_size}, head "
-        f"V={tr.head.num_verts}; steps by stage {dict(tr.steps_by_stage)}; "
+        f"V={tr.head.num_verts}; steps by stage {info['steps_by_stage']}; "
         f"{evals} evaluation renders; launches {launches}; wall {wall:.2f} s")
-    if not (tr.calibrated and tr.batchify_all_views and tr.n_timesteps >= 4
-            and cfg.model.add_teeth and cfg.model.remove_lip_inside
-            and tr.dataset.color_correction):
+    if not (info["world"] == 1 and info["calibrated"] and info["batchify_all_views"]
+            and info["n_timesteps"] >= 4 and info["color_correction"]
+            and cfg.model.add_teeth and cfg.model.remove_lip_inside):
         raise RuntimeError("track_nersemble did not run the calibrated path with "
                            "teeth (mouth open) and colour correction")
     want = {"K1 visibility": rgb_steps + evals, "K2f fused_interp": rgb_steps + evals,
@@ -1720,7 +1752,7 @@ def check_track_nersemble(root, kernels):
     args = sampled["bwd"][0]
     check_sampler("track_nersemble's last rgb step", args[:6], g=args[6])
     del sampled, args
-    ckpt = sorted(tr.out_dir.glob("tracked_flame_params_*.npz"))[-1]
+    ckpt = sorted(out_dir.glob("tracked_flame_params_*.npz"))[-1]
     z = dict(np.load(ckpt))
     with np.load(tr.dataset.sequence_path / "gt_params.npz") as gt:
         d_trans = float(np.abs(z["translation"] - gt["translation"]).mean())
@@ -1733,15 +1765,16 @@ def check_track_nersemble(root, kernels):
                          cfg.model.use_dynamic_offset, True, device="cuda")
     energy = tr._eval_energy()
     E0, E1 = (float(energy(p, batch0)[0]) for p in (init, tr.params))
-    stage_ms = {st: tr.step_timer.median_ms(st) for st in tr.steps_by_stage}
+    stage_ms = info["ms_per_step"]
     log(f"[nersemble] GT recovery: mean |d translation| {d_trans:.6f} (< 0.02), "
         f"mean |d rotation| {d_rot:.6f} (< 0.08); npz {ckpt.name} keys "
         f"{sorted(z)}; eval E of timestep 0 {E0:.6f} -> {E1:.6f}; median "
         f"ms/step by stage: " + ", ".join(f"{st} {ms:.3f}" for st, ms in
                                           stage_ms.items() if ms is not None)
-        + f"; {wall / tr.n_timesteps:.2f} s per tracked timestep at this depth; "
-        f"media_write_s {tr.media_write_s:.3f}, media_blocked_s {tr.media_blocked_s:.3f}")
-    check_native_batches(tr.dataset, "track_nersemble")
+        + f"; {wall / info['n_timesteps']:.2f} s per tracked timestep at this depth; "
+        f"media_write_s {info['media_write_s']:.3f}, media_blocked_s "
+        f"{info['media_blocked_s']:.3f}")
+    check_native_batches(tr.dataset, "track_nersemble", info)
     log_stage_ms("track_nersemble", stage_ms)
     if not (d_trans < 0.02 and d_rot < 0.08):
         raise RuntimeError(f"multiview GT recovery failed: translation {d_trans}, "
@@ -1752,7 +1785,7 @@ def check_track_nersemble(root, kernels):
                            f"values not finite")
     if not (np.isfinite(E1) and E1 < E0):
         raise RuntimeError(f"eval energy of timestep 0 did not fall: {E0} -> {E1}")
-    return launches, tr.out_dir
+    return launches, out_dir
 
 
 def check_export(run_dir, root):
@@ -2204,18 +2237,21 @@ def check_preprocess_track(kernels, smi_line):
 # phases 26-29: the native frame loader, the synthetic trainers, the viewers
 # ---------------------------------------------------------------------------
 
-def check_native_batches(ds, where):
+def check_native_batches(ds, where, summary=None):
     """A dataset the C++ loader covers took it on every batch of the run
-    (phases 19, 22 and 25)."""
+    (phases 19, 22 and 25): the batches counted on ds, or in the run's
+    summary when another tracker ran it."""
     if not ds.supports_native_batch():
         raise RuntimeError(f"{where}: the dataset's configuration is not the native "
                            f"loader's")
-    if not (ds.native_batches > 0 and ds.pil_batches == 0):
-        raise RuntimeError(f"{where}: {ds.native_batches} batches through the native "
-                           f"loader and {ds.pil_batches} through PIL; the loader "
+    native, pil = ((ds.native_batches, ds.pil_batches) if summary is None
+                   else (summary["native_batches"], summary["pil_batches"]))
+    if not (native > 0 and pil == 0):
+        raise RuntimeError(f"{where}: {native} batches through the native "
+                           f"loader and {pil} through PIL; the loader "
                            f"must take every batch")
-    log(f"[native] {where}: {ds.native_batches} batches through the native loader, "
-        f"{ds.pil_batches} through PIL")
+    log(f"[native] {where}: {native} batches through the native loader, "
+        f"{pil} through PIL")
 
 
 def log_stage_ms(where, stage_ms):
@@ -2647,6 +2683,292 @@ def check_viewers(kernels, ckpt, asset_dir, smi_line):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 30: batch-axis data parallelism (parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 5                   # 30a's train steps, disturbance on
+SHARD_TIMEOUT, SHARD_JOIN = 300, 900   # collective and whole-run limits (s)
+
+
+def _kernel_counters():
+    from vhap_tpu_torch.ops.interp import FUSED_INTERP, FUSED_INTERP_BWD
+    from vhap_tpu_torch.ops.rasterize import VISIBILITY
+    from vhap_tpu_torch.ops.texture_fetch import TRILINEAR_SAMPLE, TRILINEAR_SAMPLE_BWD
+    return {"K1 visibility": VISIBILITY, "K2f fused_interp": FUSED_INTERP,
+            "K3 trilinear_sample": TRILINEAR_SAMPLE,
+            "K2b fused_interp_bwd": FUSED_INTERP_BWD,
+            "K4 trilinear_sample_bwd": TRILINEAR_SAMPLE_BWD}
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def sharded_mv_step(device, root, with_grads):
+    """One rank of phases 30a, 30c and 30d: phase 21's 16-view step on this
+    rank's views (tools/multiview_slice.py on the process group). Its E
+    share and the all-reduced gradients with the disturbance off (the
+    gradients returned when `with_grads`, else their digests); on rank 0
+    K1 and K3 at the rank's own eval-step launch (check_k1, check_k3); then
+    SHARD_STEPS train steps with the disturbance on, counts zeroed before and
+    read after, ms per step and peak memory; the parameters' digests after
+    them; all_reduce_grads' bytes and ms (median of 5 on the step's
+    gradients)."""
+    from vhap_tpu_torch.ops import camera as cam
+    from vhap_tpu_torch.parallel import sharding
+    from vhap_tpu_torch.tools.multiview_slice import build_multiview_slice
+    from vhap_tpu_torch.tracker.energy import fill_cam_params
+    from vhap_tpu_torch.tracker.optim import loss_and_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ts = build_multiview_slice(root, device=device)
+    s = ts.eval
+    (H, W), B = s.image_size, s.batch["rgb"].shape[0]
+    res = {"rank": sharding.rank(), "world": sharding.world(), "rows": B,
+           "weight": s.batch["weight"].tolist(), "backend": torch.distributed.get_backend()}
+    E, logs, g = loss_and_grads(ts.make_energy(True, False), s.params, ts.opt_leaves,
+                                s.batch, ts.generator(1))
+    res["E"] = float(E)
+    res["grad_digest"] = {k: _digest(v) for k, v in g.items()}
+    if with_grads:
+        res["grads"] = {k: v.cpu() for k, v in g.items()}
+    with capture_sampler() as sampled:
+        _, (_, aux) = run_step(s.make_energy(True), s.params, s.batch)
+    if sharding.rank() == 0:
+        K, RT = fill_cam_params(s.batch, s.params, True, (H, W))
+        verts_clip = cam.camera_to_clip(cam.world_to_camera(aux["verts"], RT), K, (H, W))
+        _, r1 = check_k1(s, verts_clip)
+        err3, _, _ = check_k3("rank 0's eval-step launch", sampled["fwd"][0])
+        res["k1"], res["k3_err"] = r1["note"], err3
+    del aux, sampled
+    kernels = _kernel_counters()
+    init, step = ts.make_step(True, True)
+    params, state, gen = s.params, init(s.params), ts.generator(sharding.rank())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    times = []
+    for _ in range(SHARD_STEPS):
+        t = time.perf_counter()
+        params, state, E, _ = step(params, state, s.batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    res["launches"] = {name: k.launches for name, k in kernels.items()}
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["step_ms"] = times
+    res["E_last"] = float(E)
+    res["param_digest"] = {k: _digest(v) for k, v in params.items()}
+    ar = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sharding.all_reduce_grads(g)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t) * 1e3)
+    res["allreduce_ms"], res["allreduce_bytes"] = statistics.median(ar), sharding.GRAD_BYTES
+    return res
+
+
+def check_sharded_step(root, devices, backend, ref, where):
+    """Phases 30a, 30c, 30d: sharded_mv_step on `devices` under `backend`
+    against the one-process step `ref` (E, gradients) on the same card: E
+    within 1e-5 relative, every gradient within 1e-3 * max|g| (K4's and
+    the vertex normals' atomics change the order), the gradients and, after
+    SHARD_STEPS steps, the parameters bit-identical across ranks, K1..K4
+    once per step on every rank. Returns rank 0's launches."""
+    from vhap_tpu_torch.parallel import sharding
+    t = time.perf_counter()
+    out = sharding.launch(sharded_mv_step, devices, backend, args=(str(root), True),
+                          timeout=SHARD_TIMEOUT, join_timeout=SHARD_JOIN)
+    wall = time.perf_counter() - t
+    E_ref, g_ref = ref
+    E = sum(r["E"] for r in out)
+    rel = abs(E - E_ref) / abs(E_ref)
+    worst = {}
+    for k, gr in g_ref.items():
+        scale = float(gr.abs().max())
+        worst[k] = float((out[0]["grads"][k] - gr).abs().max()) / scale
+    for r in out[1:]:
+        if r["grad_digest"] != out[0]["grad_digest"]:
+            raise RuntimeError(f"{where}: the all-reduced gradients differ between ranks")
+        if r["param_digest"] != out[0]["param_digest"]:
+            raise RuntimeError(f"{where}: parameters differ between ranks after "
+                               f"{SHARD_STEPS} steps")
+    if not (rel <= 1e-5 and max(worst.values()) <= 1e-3):
+        raise RuntimeError(f"{where}: E rel {rel} (1e-5), gradient err / max|g| {worst} (1e-3)")
+    for r in out:
+        bad = {k: n for k, n in r["launches"].items() if n != SHARD_STEPS}
+        if bad:
+            raise RuntimeError(f"{where}: rank {r['rank']} launched {bad} in "
+                               f"{SHARD_STEPS} steps, expected {SHARD_STEPS} each")
+    log(f"[shard] {where}: {len(devices)} {backend} ranks on {', '.join(devices)} "
+        f"(launch wall {wall:.1f} s), rows per rank {out[0]['rows']}, weights "
+        f"{[r['weight'] for r in out]}; E (sum of shares) {E:.6f} vs one process "
+        f"{E_ref:.6f}, rel {rel:.3g}; gradient err / max|g| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items())
+        + f"; gradients and parameters after {SHARD_STEPS} steps bit-identical "
+        f"across ranks; K1 on rank 0: {out[0]['k1']}; K3 on rank 0: err "
+        f"{out[0]['k3_err']:.3g}")
+    for r in out:
+        ms = r["step_ms"]
+        log(f"[shard] {where} rank {r['rank']}: launches in {SHARD_STEPS} steps "
+            f"{r['launches']}; ms per step {statistics.median(ms[1:]):.3f} (median "
+            f"of steps 2-{SHARD_STEPS}; all {[round(x, 3) for x in ms]}); peak "
+            f"{r['peak_gib']:.3f} GiB; all_reduce_grads {r['allreduce_bytes']} "
+            f"bytes per step, {r['allreduce_ms']:.3f} ms (median of 5)")
+    return out[0]["launches"]
+
+
+def sharded_track(device, root, out, kept):
+    """One rank of phase 30b: GlobalTracker with track_nersemble's config
+    on phase 22's rig and depth (tools/loader_ab.mv_config), counts zeroed
+    before and read after; a copy of the run state written after the
+    sequential phase kept at `kept` (rank 0), then a second tracker resumed
+    from it. Returns both runs' summaries with their launches."""
+    import shutil
+
+    from vhap_tpu_torch.tools.loader_ab import mv_config
+    from vhap_tpu_torch.tracker.tracker import GlobalTracker
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = mv_config(Path(root), Path(out), str(device))
+    cfg.exp.num_devices = 2
+    kernels = _kernel_counters()
+    res = {}
+    for name in ("run", "resume"):
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        tr = GlobalTracker(cfg, device)
+        if name == "run":
+            save = tr.save_run_state
+
+            def save_and_keep(phase, cursor, epoch=0, tr=tr, save=save):
+                save(phase, cursor, epoch)
+                if phase == "global" and tr.lead:
+                    shutil.copy(tr.out_dir / "run_state.npz", kept)
+            tr.save_run_state = save_and_keep
+            tr.optimize()
+        else:
+            tr.optimize(resume_state_path=kept)
+        torch.cuda.synchronize()
+        res[name] = dict(tr.summary(), wall=time.perf_counter() - t,
+                         launches={n: k.launches for n, k in kernels.items()},
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         native=tr.dataset.supports_native_batch())
+    return res
+
+
+def check_sharded_track(root, run_dir):
+    """Phase 30b: sharded_track on two gloo ranks on cuda:0: every rank K1,
+    K2f, K3 once per rgb step and evaluation render and K2b, K4 once per rgb
+    step; every batch native; multiview GT recovery at phase 22's gate;
+    rank 0's output folder with phase 22's file names (tensorboard's event
+    file named by time and host); the resumed run the global stage alone,
+    its recovery passing too. Returns rank 0's launches."""
+    import numpy as np
+
+    from vhap_tpu_torch.parallel import sharding
+    kept = root / "sharded_run_state.npz"
+    out = sharding.launch(sharded_track, ["cuda:0", "cuda:0"], "gloo",
+                          args=(str(root), str(root / "track_sharded"), str(kept)),
+                          timeout=SHARD_TIMEOUT, join_timeout=SHARD_JOIN)
+
+    def names(d):
+        return sorted("events.out.tfevents*" if p.name.startswith("events.out.tfevents")
+                      else str(p.relative_to(d)) for p in Path(d).rglob("*"))
+
+    for r in out:
+        for name, m in r.items():
+            rgb = sum(n for st, n in m["steps_by_stage"].items() if st.startswith("rgb"))
+            want = {"K1 visibility": rgb + m["eval_calls"],
+                    "K2f fused_interp": rgb + m["eval_calls"],
+                    "K3 trilinear_sample": rgb + m["eval_calls"],
+                    "K2b fused_interp_bwd": rgb, "K4 trilinear_sample_bwd": rgb}
+            if m["launches"] != want:
+                raise RuntimeError(f"sharded track_nersemble ({name}) rank {m['rank']}: "
+                                   f"launches {m['launches']}, expected {want}")
+            if not (m["native"] and m["native_batches"] > 0 and m["pil_batches"] == 0):
+                raise RuntimeError(f"sharded track_nersemble ({name}) rank {m['rank']}: "
+                                   f"{m['native_batches']} native, {m['pil_batches']} PIL "
+                                   f"batches")
+    run, resume = out[0]["run"], out[0]["resume"]
+    if set(resume["steps_by_stage"]) != {"rgb_global_tracking"}:
+        raise RuntimeError(f"the resumed run ran {resume['steps_by_stage']}")
+    if names(run["out_dir"]) != names(run_dir):
+        a, b = set(names(run["out_dir"])), set(names(run_dir))
+        raise RuntimeError(f"rank 0's files differ from phase 22's: only sharded "
+                           f"{sorted(a - b)[:10]}, only phase 22 {sorted(b - a)[:10]}")
+    with np.load(Path(root) / "data" / "001" / "SEN-01" / "gt_params.npz") as gt:
+        gt = dict(gt)
+    rec = {}
+    for name, m in (("run", run), ("resume", resume)):
+        z = np.load(sorted(Path(m["out_dir"]).glob("tracked_flame_params_*.npz"))[-1])
+        rec[name] = (float(np.abs(z["translation"] - gt["translation"]).mean()),
+                     float(np.abs(z["rotation"] - gt["rotation"]).mean()))
+        if not (rec[name][0] < 0.02 and rec[name][1] < 0.08):
+            raise RuntimeError(f"sharded track_nersemble ({name}): GT recovery "
+                               f"failed: translation {rec[name][0]}, rotation {rec[name][1]}")
+    for r in out:
+        m = r["run"]
+        log(f"[shard] 30b rank {m['rank']}: steps {m['steps_by_stage']}, {m['eval_calls']} "
+            f"evaluation renders, launches {m['launches']}; ms per step by stage "
+            + ", ".join(f"{st} {ms:.3f}" for st, ms in m["ms_per_step"].items()
+                        if ms is not None)
+            + f"; wall {m['wall']:.2f} s ({m['wall'] / m['n_timesteps']:.2f} s per "
+            f"timestep); {m['native_batches']} native batches, {m['pil_batches']} PIL; "
+            f"peak {m['peak_gib']:.3f} GiB; resume: global stage "
+            f"{r['resume']['steps_by_stage']}, {r['resume']['wall']:.2f} s")
+    log(f"[shard] 30b GT recovery: mean |d translation| {rec['run'][0]:.6f} (< 0.02), "
+        f"|d rotation| {rec['run'][1]:.6f} (< 0.08); resumed {rec['resume'][0]:.6f}, "
+        f"{rec['resume'][1]:.6f}; rank 0's folder holds phase 22's "
+        f"{len(names(run_dir))} file names")
+    return run["launches"]
+
+
+def sharding_reference(root):
+    """The one-process 16-view step on the card (phase 21's, disturbance
+    off): (E, gradients on the host), what phase 30 compares with."""
+    from vhap_tpu_torch.tools.multiview_slice import build_multiview_slice
+    from vhap_tpu_torch.tracker.optim import loss_and_grads
+    ts = build_multiview_slice(root, device="cuda")
+    s = ts.eval
+    E, _, g = loss_and_grads(ts.make_energy(True, False), s.params, ts.opt_leaves,
+                             s.batch, ts.generator(1))
+    ref = (float(E), {k: v.cpu() for k, v in g.items()})
+    del ts, s, g
+    torch.cuda.empty_cache()
+    return ref
+
+
+def check_multi_card(root, ref):
+    """Phase 30d: NCCL across min(4, count) cards where there are two or
+    more, else one line saying so."""
+    n = min(4, torch.cuda.device_count())
+    if n >= 2:
+        check_sharded_step(root, [f"cuda:{i}" for i in range(n)], "nccl", ref, "30d")
+    else:
+        log(f"[shard] 30d not run: {torch.cuda.device_count()} card(s) visible, "
+            f"NCCL across cards needs two or more")
+
+
+def check_sharding(root, run_dir, smi_line):
+    """Phase 30: 30a two gloo ranks on cuda:0 (check_sharded_step), 30b
+    the tracker on them (check_sharded_track), 30c NCCL at world 1 through
+    the same launcher, 30d (check_multi_card). Returns {path: launches}
+    for the kernels line."""
+    log(f"[shard] phase 30 on {smi_line}")
+    ref = sharding_reference(root)
+    paths = {"sharded mv step (per rank)": check_sharded_step(
+        root, ["cuda:0", "cuda:0"], "gloo", ref, "30a")}
+    paths["sharded track_nersemble (per rank)"] = check_sharded_track(root, run_dir)
+    check_sharded_step(root, ["cuda:0"], "nccl", ref, "30c")
+    check_multi_card(root, ref)
+    return paths
+
+
 def main() -> int:
     smi_line = card()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in full
@@ -2881,6 +3203,10 @@ def main() -> int:
         ckpt = sorted(run_dir.glob("tracked_flame_params_*.npz"))[-1]
         paths.update(check_viewers(render_kernels, ckpt, mv_root / "assets", smi_line))
         lap("29 (viewer, editor)")
+
+        # ---- 30. batch-axis data parallelism: 30a-30d ----
+        paths.update(check_sharding(mv_root, run_dir, smi_line))
+        lap("30 (data parallelism)")
     log(f"[done] run {time.perf_counter() - t0:.1f} s")
 
     for row in rows_out:
@@ -2895,5 +3221,31 @@ def main() -> int:
     return 0
 
 
+def main_multi_card() -> int:
+    """`python3 chip_smoke.py --multi-card`: phases 1-2, the rig of phase
+    21 and 30d alone, with the one-process step it is compared with, for a
+    machine with several cards."""
+    import tempfile
+
+    from vhap_tpu_torch.tools.multiview_slice import write_rig
+    smi_line = card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_rig(root, n_cams=MV_CAMS, n_frames=MV_TRACK_FRAMES, size=512, device="cuda")
+        log(f"[time] phases 1-2, the rig: {time.perf_counter() - t0:.1f} s")
+        log(f"[shard] phase 30d on {smi_line}")
+        check_multi_card(root, sharding_reference(root))
+        log(f"[time] 30d: run {time.perf_counter() - t0:.1f} s")
+    print(smi_line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_multi_card() if sys.argv[1:] == ["--multi-card"] else main())

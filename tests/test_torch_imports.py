@@ -166,3 +166,23 @@ def test_native_loader_builds_outside_the_package():
     from vhap_tpu_torch.data import native_loader
     assert native_loader.BUILD_DIR == REPO / "build" / "native"
     assert not list(PORT.rglob("*.so"))
+
+def test_sharding_module_is_scanned():
+    """parallel/sharding.py, the counterpart of vhap_tpu/parallel/
+    sharding.py, is among the sources held to the rules above."""
+    assert PORT / "parallel" / "sharding.py" in _port_sources()
+
+
+def test_several_devices_need_cards_or_the_cpu(monkeypatch, tmp_path):
+    """exp.num_devices asks for cards unless the CPU is asked for; NCCL has
+    no CPU fallback."""
+    from vhap_tpu_torch import track
+    from vhap_tpu_torch.parallel import sharding
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharding.plan(4)
+    assert sharding.plan(4, "cpu") == (["cpu"] * 4, "gloo")
+    with pytest.raises(ValueError, match="NCCL needs a CUDA device"):
+        sharding.init("nccl", 0, 1, (tmp_path / "rdv").as_uri(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        track.main(["--data.root_folder", str(tmp_path), "--exp.num_devices", "2"])

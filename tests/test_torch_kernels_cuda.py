@@ -398,13 +398,13 @@ def test_tracker_runs_on_the_card(dev, tmp_path):
     from vhap_tpu_torch.ops.interp import FUSED_INTERP_BWD
     from vhap_tpu_torch.tools.validate import run
     n0 = FUSED_INTERP_BWD.launches
-    report, _, tr = run(tmp_path, frames=4, size=64, batch_size=2,
-                        schedule_scale=0.05)
+    report, _, info = run(tmp_path, frames=4, size=64, batch_size=2,
+                          schedule_scale=0.05, num_devices=1)
     torch.cuda.synchronize()
-    rgb_steps = sum(n for st, n in tr.steps_by_stage.items() if st.startswith("rgb"))
+    rgb_steps = sum(n for st, n in info["steps_by_stage"].items() if st.startswith("rgb"))
     assert rgb_steps > 0 and FUSED_INTERP_BWD.launches == n0 + rgb_steps
     assert all(np.isfinite(v) for v in report.values() if isinstance(v, float))
-    assert tr.params["shape"].is_cuda
+    assert info["device"].startswith("cuda") and info["world"] == 1
 
 
 @pytest.mark.parametrize("name", ["coplanar_ties", "covering_face", "near_plane",

@@ -359,7 +359,7 @@ def test_track_nersemble_v2_cli_on_cpu(rig, tmp_path):
     """python -m vhap_tpu_torch.track_nersemble_v2 ... --device cpu."""
     from vhap_tpu_torch import track_nersemble_v2
     root = rig[0]
-    tr = track_nersemble_v2.main([
+    info = track_nersemble_v2.main([
         "--data.root_folder", str(root / "v2"), "--data.subject", SUBJECT,
         "--data.sequence", SEQ, "--data.background_color", "None",
         "--model.n_shape", str(NS), "--model.n_expr", str(NE),
@@ -373,9 +373,9 @@ def test_track_nersemble_v2_cli_on_cpu(rig, tmp_path):
         "--pipeline.lmk_global_tracking.num_epochs", "1",
         "--log.interval_scalar", "1000000", "--log.interval_media", "1000000",
         "--device", "cpu"])
-    assert type(tr.dataset).__name__ == "NeRSembleV2Dataset"
-    assert tr.dataset.color_correction and tr.batchify_all_views
-    z = np.load(sorted(Path(tr.out_dir).glob("tracked_flame_params_*.npz"))[-1])
+    assert info["dataset"] == "NeRSembleV2Dataset"
+    assert info["color_correction"] and info["batchify_all_views"]
+    z = np.load(sorted(Path(info["out_dir"]).glob("tracked_flame_params_*.npz"))[-1])
     assert "focal_length" not in z.files and z["rotation"].shape == (N_T, 3)
 
 

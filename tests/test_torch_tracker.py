@@ -307,7 +307,9 @@ def test_dataset_items_match_jax(seq, background, scale):
 
 
 def test_out_of_slice_options_raise(seq, tmp_path, monkeypatch):
-    """Several devices raise, naming what brings them; missing landmarks of
+    """Several devices asked of a tracker built without a process group
+    raise, naming what starts one process per device (run_tracker, launch,
+    torchrun; tests/test_torch_sharding.py runs them); missing landmarks of
     a package-gated source raise as in the JAX package (its detector's
     RuntimeError naming the package); without a card the tracker needs
     device='cpu'. (Calibrated multiview data is ported:
@@ -318,7 +320,7 @@ def test_out_of_slice_options_raise(seq, tmp_path, monkeypatch):
     root, _ = seq
     cfg = _cfg(TConfig, root, tmp_path / "out")
     cfg.exp.num_devices = 2
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(RuntimeError, match="one process per device.*run_tracker"):
         GlobalTracker(cfg, device="cpu")
     cfg = _cfg(TConfig, root, tmp_path / "out")
     cfg.data.landmark_source = "face-alignment"
@@ -335,7 +337,7 @@ def test_track_cli_on_cpu(seq, tmp_path):
     """python -m vhap_tpu_torch.track ... --device cpu runs the schedule."""
     from vhap_tpu_torch import track
     root, _ = seq
-    tr = track.main([
+    info = track.main([
         "--data.root_folder", str(root), "--data.sequence", SEQ,
         "--data.background_color", "None", "--model.n_shape", "50",
         "--model.n_expr", "20", "--model.no-add-teeth", "--model.no-tex-extra",
@@ -346,9 +348,10 @@ def test_track_cli_on_cpu(seq, tmp_path):
         "--pipeline.lmk_init_all.num_steps", "3",
         "--pipeline.lmk_sequential_tracking.num_steps", "2",
         "--pipeline.lmk_global_tracking.num_epochs", "1"])
-    assert tr.device.type == "cpu" and tr.global_step == 3 + 3 + 2 * 2 + 2
-    assert (tr.out_dir / "config.yml").exists()
-    assert sorted(tr.out_dir.glob("tracked_flame_params_*.npz"))
+    assert info["device"] == "cpu" and info["global_step"] == 3 + 3 + 2 * 2 + 2
+    out_dir = Path(info["out_dir"])
+    assert (out_dir / "config.yml").exists()
+    assert sorted(out_dir.glob("tracked_flame_params_*.npz"))
 
 
 def test_image_folder_dataset_matches_jax(seq):

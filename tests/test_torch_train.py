@@ -1,8 +1,12 @@
 """Port parity of the training step against the JAX package (tiny synthetic
 head, 32x128, tex 64, n_shape 20, n_expr 10, CPU): the cluster
 disturbance by distribution, every regularizer term, the whole training
-energy and its gradient, leaf-lr Adam, copy_forward and the npz round
-trip."""
+energy and its gradient (also on 2 gloo ranks, vhap_tpu_torch/parallel/
+sharding.py, against the same eager JAX reference), leaf-lr Adam,
+copy_forward and the npz round trip."""
+
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +34,11 @@ from vhap_tpu_torch.tracker import energy as TE
 from vhap_tpu_torch.tracker import optim as TO
 from vhap_tpu_torch.tracker import params as TP
 
+import torch_sharding_cases as C
+from vhap_tpu_torch.parallel import sharding
+
 NS, NE, R, H, W, B, T = 20, 10, 64, 32, 128, 2, 4
+TRAIN_STAGES = ("rgb_sequential_tracking", "rgb_init_offset")
 
 
 def _np_dict(d):
@@ -255,15 +263,7 @@ def test_regularizers_match(heads, stage):
 # (e) the whole training energy and its gradient
 # ---------------------------------------------------------------------------
 
-def _train_config(cls, stage):
-    cfg = cls()
-    cfg.model.n_shape, cfg.model.n_expr, cfg.model.tex_resolution = NS, NE, R
-    cfg.render.disturb_rate_fg = cfg.render.disturb_rate_bg = None
-    if stage == "rgb_init_offset":
-        # exercise the boundary detach too (the synthetic head has no
-        # "bottomline" region)
-        cfg.pipeline.rgb_init_offset.align_boundary_except = ("hair",)
-    return cfg
+_train_config = C.train_config
 
 
 def _train_inputs(th):
@@ -289,8 +289,68 @@ def _train_inputs(th):
     return p, batch
 
 
-@pytest.mark.parametrize("stage", ["rgb_sequential_tracking", "rgb_init_offset"])
-def test_training_energy_and_gradient_match(heads, stage):
+@pytest.fixture(scope="module")
+def jax_refs():
+    """JAX's eager (E, log, gradients) of each training stage, computed once
+    (_jax_train_ref) for the one-process and the 2-rank tests."""
+    return {}
+
+
+def _jax_train_ref(jax_refs, heads, stage):
+    if stage not in jax_refs:
+        a, jh, th = heads
+        jc = _train_config(JConfig, stage)
+        p, batch = _train_inputs(th)
+        jen = JE.make_energy_fn(jh, jc, JE.make_albedo_fn(jc, JTex(a.tex_painted, R), None),
+                                (H, W), T, stage)
+        leaves = JO.stage_optimizable_leaves(jc, stage, p)
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        frozen = {k: jnp.asarray(v) for k, v in p.items() if k not in leaves}
+
+        def loss(op):
+            E, (log, _) = jen({**frozen, **op}, jb, jax.random.PRNGKey(0))
+            return E, log
+
+        # eager, not jitted: on this 32x128 scene the jitted JAX gradient
+        # moves by up to 2.4e-2 of max|g| away from the eager one (ROADMAP.md
+        # Queue 3), while the port's float32 gradient equals its float64 one
+        # to 1e-5
+        (jE, jlog), jg = jax.value_and_grad(loss, has_aux=True)(
+            {k: jnp.asarray(p[k]) for k in leaves})
+        jax_refs[stage] = (float(jE), {k: float(v) for k, v in jlog.items()},
+                           {k: np.asarray(v) for k, v in jg.items()}, leaves)
+    return jax_refs[stage]
+
+
+@pytest.fixture(scope="module")
+def two_ranks(heads, tmp_path_factory):
+    """Both stages' (E, log, gradients) on 2 gloo ranks of the port, one
+    row each (a future: the ranks run while JAX compiles)."""
+    _, _, th = heads
+    p, batch = _train_inputs(th)
+    rdv = (tmp_path_factory.mktemp("two_ranks") / "rdv").as_uri()
+    with ThreadPoolExecutor(1) as pool:
+        yield pool.submit(sharding.launch, C.train_energy_checks, ["cpu", "cpu"],
+                          "gloo", args=(p, batch, TRAIN_STAGES), init_method=rdv,
+                          timeout=60, join_timeout=240, num_threads=1)
+
+
+def _assert_matches_jax(tE, tlog, tg, ref):
+    jE, jlog, jg, leaves = ref
+    assert set(tlog) == set(jlog)
+    for k in jlog:
+        np.testing.assert_allclose(tlog[k], jlog[k], rtol=1e-4, atol=1e-9, err_msg=k)
+    np.testing.assert_allclose(tE, jE, rtol=1e-4)
+    for k in leaves:
+        ref_k = jg[k]
+        scale = np.abs(ref_k).max()
+        assert scale > 0, k
+        err = np.abs(tg[k] - ref_k).max()
+        assert err <= 1e-4 * scale, (k, err / scale)
+
+
+@pytest.mark.parametrize("stage", TRAIN_STAGES)
+def test_training_energy_and_gradient_match(heads, jax_refs, two_ranks, stage):
     """The port's make_energy_fn(..., stage) on the CPU against
     jax.value_and_grad of the JAX one, disturbance rates None on both
     sides: E_total and every log term to 1e-4 relative, each optimizable
@@ -298,41 +358,35 @@ def test_training_energy_and_gradient_match(heads, stage):
     a, jh, th = heads
     jc, tc = _train_config(JConfig, stage), _train_config(TConfig, stage)
     p, batch = _train_inputs(th)
-    jen = JE.make_energy_fn(jh, jc, JE.make_albedo_fn(jc, JTex(a.tex_painted, R), None),
-                            (H, W), T, stage)
-    leaves = JO.stage_optimizable_leaves(jc, stage, p)
-    assert leaves == TO.stage_optimizable_leaves(tc, stage, p)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    frozen = {k: jnp.asarray(v) for k, v in p.items() if k not in leaves}
-
-    def loss(op):
-        E, (log, _) = jen({**frozen, **op}, jb, jax.random.PRNGKey(0))
-        return E, log
-
-    # eager, not jitted: on this 32x128 scene the jitted JAX gradient moves
-    # by up to 2.4e-2 of max|g| away from the eager one (ROADMAP.md Queue
-    # 3), while the port's float32 gradient equals its float64 one to 1e-5
-    (jE, jlog), jg = jax.value_and_grad(loss, has_aux=True)(
-        {k: jnp.asarray(p[k]) for k in leaves})
-
+    ref = _jax_train_ref(jax_refs, heads, stage)
+    assert ref[3] == TO.stage_optimizable_leaves(tc, stage, p)
     ten = TE.make_energy_fn(th, tc, TE.make_albedo_fn(
         tc, TTex(a.tex_painted, R, device="cpu"), None), (H, W), T, stage,
         device="cpu")
     tE, tlog, tg = TO.loss_and_grads(ten, params_from_numpy(p, device="cpu"),
-                                     leaves, {k: torch.as_tensor(v) for k, v in batch.items()},
+                                     ref[3], {k: torch.as_tensor(v) for k, v in batch.items()},
                                      torch.Generator().manual_seed(0))
-    assert set(tlog) == set(jlog)
     assert {"photo", "lmk", "reg_tex_tv"} <= set(tlog)
-    for k in jlog:
-        np.testing.assert_allclose(float(tlog[k]), float(jlog[k]), rtol=1e-4,
-                                   atol=1e-9, err_msg=k)
-    np.testing.assert_allclose(float(tE), float(jE), rtol=1e-4)
-    for k in leaves:
-        ref = np.asarray(jg[k])
-        scale = np.abs(ref).max()
-        assert scale > 0, k
-        err = np.abs(tg[k].numpy() - ref).max()
-        assert err <= 1e-4 * scale, (k, err / scale)
+    _assert_matches_jax(float(tE), {k: float(v) for k, v in tlog.items()},
+                        {k: v.numpy() for k, v in tg.items()}, ref)
+
+
+@pytest.mark.parametrize("stage", TRAIN_STAGES)
+def test_training_energy_two_ranks_match_jax(heads, jax_refs, two_ranks, stage):
+    """The same energy on 2 gloo ranks, one frame each: the ranks' shares of
+    E and of every log term summed, and the all-reduced gradients (the same
+    bits on both ranks), against the same eager JAX reference at the same
+    tolerances. The sequential stage has the smooth terms and the
+    photometric area; rgb_init_offset adds reg_diffuse (lights), the
+    offset regularizers and the batch-free reg_shape."""
+    ranks = [r[stage] for r in two_ranks.result()]
+    for k, g in ranks[0][2].items():
+        np.testing.assert_array_equal(ranks[1][2][k], g, err_msg=k)
+    E = sum(r[0] for r in ranks)
+    log = {k: sum(r[1][k] for r in ranks) for k in ranks[0][1]}
+    if stage == "rgb_init_offset":
+        assert {"reg_diffuse", "reg_offset_rigid", "reg_shape"} <= set(log)
+    _assert_matches_jax(E, log, ranks[0][2], _jax_train_ref(jax_refs, heads, stage))
 
 
 # ---------------------------------------------------------------------------

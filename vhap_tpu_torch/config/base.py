@@ -217,8 +217,13 @@ class ExperimentConfig(Config):
     resume_run_state: Optional[Path] = None
     """Resume mid-run from a run_state.npz of a previous (interrupted) run."""
     num_devices: int = 0
-    """Devices to shard the batch axis over (0 = all). The port tracks on
-    one device; a value above 1 raises (multi-GPU is not ported)."""
+    """Devices to shard the batch (frame/camera) axis over, one process
+    each (parallel/sharding.py): 0 = every visible CUDA card (1 on the
+    CPU); 1 = one process; n > 1 = min(n, available) cards with NCCL, or,
+    with `--device cpu`, n gloo processes. Batches are padded with weight-0
+    rows and partitioned on axis 0, parameters and Adam's state replicated,
+    and the gradients all-reduced before Adam. The reference is single-GPU
+    (vhap/config/base.py:329)."""
 
 
 @dataclass

@@ -310,9 +310,14 @@ class VideoDataset:
             item["intrinsic"][:2] *= scale_factor
         return item
 
-    def getitem_by_timestep(self, timestep_index):
+    def getitem_by_timestep(self, timestep_index, views=None):
+        """Every view of one timestep, or the views `views` (camera
+        positions, in that order, repeats allowed: one rank's rows of a
+        sharded batch); cameras travel with their views."""
         begin = timestep_index * self.num_cameras
-        idx = list(range(begin, begin + self.num_cameras))
+        if views is None:
+            views = range(self.num_cameras)
+        idx = [begin + int(v) for v in views]
         native = self.load_batch_native(idx)
         if native is not None:
             # C++ decode/CC/resize/composite; Python only for metadata

@@ -39,6 +39,7 @@ from vhap_tpu_torch.ops.shading import (compute_face_normals,
                                         compute_v_normals, safe_normalize,
                                         shade)
 from vhap_tpu_torch.ops.texture import texture_sample
+from vhap_tpu_torch.parallel import sharding
 
 
 @dataclass(frozen=True)
@@ -200,6 +201,11 @@ def _cluster_disturbance(rgba, rgba_bg, cid, generator, rate_fg, rate_bg,
     weight-0 padded frames from the pool: their pixels get the sentinel
     cluster `num_clusters`, which sorts past every real range. Random
     numbers come from `generator`.
+
+    Under a process group (parallel/sharding.py) the pool is the whole
+    batch's, as JAX's sort over the global batch: each rank's subsampled
+    keys are gathered (int32, no gradient) before the sort, and each rank
+    samples from it for its own pixels with its own generator.
     """
     if impl == "pairswap":
         raise NotImplementedError(
@@ -228,6 +234,7 @@ def _cluster_disturbance(rgba, rgba_bg, cid, generator, rate_fg, rate_bg,
         g = N // (128 * pool_stride)
         keys = keys[:g * 128 * pool_stride].reshape(
             g, pool_stride, 128)[:, 0].reshape(-1)
+    keys = sharding.all_gather_rows(keys)     # the whole batch's pool
     if keys.numel() == 0:
         return rgba                      # an empty pool swaps nothing
     sorted_keys = torch.sort(keys).values

@@ -42,7 +42,7 @@ MV_STEPS = {"lmk_init_rigid": 150, "lmk_init_all": 150, "rgb_init_texture": 10,
 def mono_config(root: Path, out: Path, device: str) -> BaseTrackingConfig:
     """The monocular loop of chip_smoke.py phases 19 and 25 on root/seq:
     full width (batch 16, texture 2048, static offset, residual texture),
-    MONO_STEPS deep, media every 25 steps."""
+    MONO_STEPS deep, media every 25 steps, one process."""
     cfg = BaseTrackingConfig()
     cfg.data.root_folder, cfg.data.sequence = root, "seq"
     cfg.data.background_color = None
@@ -52,6 +52,7 @@ def mono_config(root: Path, out: Path, device: str) -> BaseTrackingConfig:
     cfg.exp.output_folder = out
     cfg.batch_size = 16
     cfg.device = device
+    cfg.exp.num_devices = 1
     for stage, n in MONO_STEPS.items():
         cfg.pipeline[stage].num_steps = n
     cfg.pipeline.rgb_global_tracking.num_epochs = 1
@@ -62,13 +63,14 @@ def mono_config(root: Path, out: Path, device: str) -> BaseTrackingConfig:
 
 def mv_argv(root: Path, out: Path) -> list:
     """track_nersemble's arguments in chip_smoke.py phase 22, on the rig of
-    tools/multiview_slice.write_rig(root), MV_STEPS deep."""
+    tools/multiview_slice.write_rig(root), MV_STEPS deep, one process."""
     argv = ["--data.root_folder", str(root / "data"), "--data.subject", "001",
             "--data.sequence", "SEN-01", "--data.no-align-cameras-to-axes",
             "--data.background_color", "None", "--model.asset_dir", str(root / "assets"),
             "--model.remove-lip-inside", "--exp.output_folder", str(out),
             "--pipeline.rgb_global_tracking.num_epochs", "1",
-            "--log.interval_scalar", "50", "--log.interval_media", "100"]
+            "--log.interval_scalar", "50", "--log.interval_media", "100",
+            "--exp.num_devices", "1"]
     for stage, n in MV_STEPS.items():
         argv += [f"--pipeline.{stage}.num_steps", str(n)]
     return argv

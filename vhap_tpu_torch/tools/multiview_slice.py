@@ -17,7 +17,9 @@ the teeth show through the mouth; per-camera affine colour correction);
 `build_multiview_slice` reads it through the port's NeRSembleDataset and
 returns a TrainSlice whose parameters start from the rig's ground truth,
 perturbed from a numpy seed. Used by chip_smoke.py; the tests build it at a
-small size.
+small size. Under a process group of n ranks (parallel/sharding.py) the
+step's batch is this rank's block of the views padded to a multiple of n
+(weight-0 rows), loaded alone, as the tracker shards a timestep.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from vhap_tpu_torch.config.nersemble import NersembleDataConfig
 from vhap_tpu_torch.data.nersemble_dataset import NeRSembleDataset
 from vhap_tpu_torch.device import resolve_device
 from vhap_tpu_torch.model.flame import FlameHead, FlameTexPainted
+from vhap_tpu_torch.parallel import sharding
 from vhap_tpu_torch.tools.eval_slice import EvalSlice
 from vhap_tpu_torch.tools.make_synthetic_multiview import generate_multiview
 from vhap_tpu_torch.tools.surgery_regions import write_region_assets
@@ -84,7 +87,8 @@ def slice_config(root, n_shape: int = 300, n_expr: int = 100,
 def build_multiview_slice(root, device=None, n_shape: int = 300,
                           n_expr: int = 100, tex_res: int = 2048,
                           stage: str = STAGE) -> TrainSlice:
-    """The step on timestep TIMESTEP of the rig at `root` (write_rig)."""
+    """The step on timestep TIMESTEP of the rig at `root` (write_rig), on
+    this process's rank."""
     dev = resolve_device(device)
     cfg = slice_config(root, n_shape, n_expr, tex_res)
     head = FlameHead.build(n_shape=n_shape, n_expr=n_expr,
@@ -94,16 +98,18 @@ def build_multiview_slice(root, device=None, n_shape: int = 300,
     get_albedo = make_albedo_fn(
         cfg, FlameTexPainted(head.assets.tex_painted, tex_res, device=dev), None)
     ds = NeRSembleDataset(cfg.data, img_to_tensor=True)
-    item = ds.getitem_by_timestep(TIMESTEP)
-    n = cfg.batch_size = item["rgb"].shape[0]
+    n = cfg.batch_size = ds.num_cameras
+    rows = sharding.shard_padded({"view": np.arange(n), "weight": np.ones(n, np.float32)})
+    item = ds.getitem_by_timestep(TIMESTEP, rows["view"])
     image_size: Tuple[int, int] = tuple(item["rgb"].shape[1:3])
 
     def on_dev(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
     batch = {k: on_dev(item[k]) for k in ("rgb", "lmk2d", "intrinsic", "extrinsic")}
-    batch["timestep_index"] = torch.full((n,), TIMESTEP, dtype=torch.int32, device=dev)
-    batch["weight"] = torch.ones(n, device=dev)
+    batch["timestep_index"] = torch.full((len(rows["view"]),), TIMESTEP,
+                                         dtype=torch.int32, device=dev)
+    batch["weight"] = on_dev(rows["weight"])
 
     T = ds.num_timesteps
     params = P.init_params(T, n_shape, n_expr, cfg.model.n_tex, head.num_verts,

@@ -7,10 +7,13 @@ photometric tracking pipeline (GlobalTracker) and reports the recovery
 errors against the known ground truth. It PASSes when every number of the
 report is finite, the mean rotation error is under 0.1 rad and the mean
 translation error under 0.02. Runs on the CUDA card unless given
-`--device cpu`.
+`--device cpu`; `--num_devices N` shards each batch over N devices, one
+process each, as the tracker's `exp.num_devices` (0, the default: every
+visible card, one process on the CPU).
 
 Usage: python -m vhap_tpu_torch.tools.validate [--workdir output/validate]
-           [--device cpu] [--reference_schedule] [--schedule_scale 0.5]
+           [--device cpu] [--num_devices N] [--reference_schedule]
+           [--schedule_scale 0.5]
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ def build_config(workdir: Path, size: int, batch_size: int,
                  texture_grad_mode: str = "trilinear",
                  texture_grad_impl: str = "auto",
                  reference_schedule: bool = False,
-                 schedule_scale: float = 1.0, device=None):
+                 schedule_scale: float = 1.0, device=None, num_devices: int = 0):
     """The validation run's tracking config (validate_tpu.py:55-77); a
     schedule_scale below 1 shortens every stage of the reduced schedule."""
     from vhap_tpu_torch.config.base import BaseTrackingConfig
@@ -49,6 +52,7 @@ def build_config(workdir: Path, size: int, batch_size: int,
     cfg.render.texture_grad_mode = texture_grad_mode
     cfg.render.texture_grad_impl = texture_grad_impl
     cfg.device = device
+    cfg.exp.num_devices = num_devices
     if not reference_schedule:
         for stage, n in REDUCED_STEPS.items():
             cfg.pipeline[stage].num_steps = max(1, round(n * schedule_scale))
@@ -63,10 +67,11 @@ def build_config(workdir: Path, size: int, batch_size: int,
 def run(workdir: Path, frames: int = 16, size: int = 256, batch_size: int = 8,
         texture_grad_mode: str = "trilinear", texture_grad_impl: str = "auto",
         reference_schedule: bool = False, schedule_scale: float = 1.0,
-        device=None):
-    """Generate (once), track, and return (report, ok, tracker)."""
+        device=None, num_devices: int = 0):
+    """Generate (once), track, and return (report, ok, the run's summary,
+    tracker.run_tracker's)."""
     from vhap_tpu_torch.tools.make_synthetic_sequence import generate
-    from vhap_tpu_torch.tracker.tracker import GlobalTracker
+    from vhap_tpu_torch.tracker.tracker import run_tracker
 
     workdir = Path(workdir)
     seq_dir = workdir / "seq"
@@ -77,14 +82,13 @@ def run(workdir: Path, frames: int = 16, size: int = 256, batch_size: int = 8,
 
     cfg = build_config(workdir, size, batch_size, texture_grad_mode,
                        texture_grad_impl, reference_schedule, schedule_scale,
-                       device)
+                       device, num_devices)
     t0 = time.time()
-    tr = GlobalTracker(cfg)
-    tr.optimize()
+    info = run_tracker(cfg)
     wall = time.time() - t0
 
     gt = np.load(seq_dir / "gt_params.npz")
-    z = np.load(sorted(Path(tr.out_dir).glob("tracked_flame_params_*.npz"))[-1])
+    z = np.load(sorted(Path(info["out_dir"]).glob("tracked_flame_params_*.npz"))[-1])
     report = {
         "wall_s": round(wall, 1),
         "wall_s_per_frame": round(wall / frames, 2),
@@ -92,9 +96,9 @@ def run(workdir: Path, frames: int = 16, size: int = 256, batch_size: int = 8,
         # media_blocked_s is main-thread time lost to the media backlog
         # (bounded queue waits + the final drain); tracking wall = wall -
         # blocked
-        "media_write_s": round(tr.media_write_s, 1),
-        "media_blocked_s": round(tr.media_blocked_s, 1),
-        "tracking_wall_s": round(wall - tr.media_blocked_s, 1),
+        "media_write_s": round(info["media_write_s"], 1),
+        "media_blocked_s": round(info["media_blocked_s"], 1),
+        "tracking_wall_s": round(wall - info["media_blocked_s"], 1),
         "frames": frames,
         "size": size,
         "batch_size": batch_size,
@@ -105,7 +109,7 @@ def run(workdir: Path, frames: int = 16, size: int = 256, batch_size: int = 8,
     }
     ok = bool(np.isfinite(list(report.values())).all()
               and report["rot_err_rad"] < 0.1 and report["trans_err_m"] < 0.02)
-    return report, ok, tr
+    return report, ok, info
 
 
 def main(argv=None):
@@ -124,11 +128,14 @@ def main(argv=None):
                     help="scale every step count of the reduced schedule")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--num_devices", type=int, default=0,
+                    help="devices to shard each batch over, one process each "
+                         "(0: every visible card; one process on the CPU)")
     args = ap.parse_args(argv)
     report, ok, _ = run(args.workdir, args.frames, args.size, args.batch_size,
                         args.texture_grad_mode, args.texture_grad_impl,
                         args.reference_schedule, args.schedule_scale,
-                        args.device)
+                        args.device, args.num_devices)
     print("VALIDATION REPORT:", report)
     print("RESULT:", "PASS" if ok else "FAIL")
     return 0 if ok else 1

@@ -6,6 +6,12 @@ Usage:
 
 Tracks every calibrated view of a timestep per step, on the CUDA card
 unless `--device cpu` is given.
+
+`--exp.num_devices N` shards each batch over N cards, one process each
+(0, the default: every visible card; with `--device cpu`, N gloo
+processes); a run started by torchrun joins torchrun's processes. Only
+rank 0 writes. main() returns the run's summary, rank 0's when several
+processes run (tracker.run_tracker).
 """
 
 from vhap_tpu_torch.config.cli import parse_cli, to_yaml
@@ -15,10 +21,8 @@ from vhap_tpu_torch.config.nersemble import NersembleTrackingConfig
 def main(argv=None):
     cfg = parse_cli(NersembleTrackingConfig, argv)
     print(to_yaml(cfg))
-    from vhap_tpu_torch.tracker.tracker import GlobalTracker
-    tracker = GlobalTracker(cfg)
-    tracker.optimize(resume_state_path=cfg.exp.resume_run_state)
-    return tracker
+    from vhap_tpu_torch.tracker.tracker import run_tracker
+    return run_tracker(cfg)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,17 @@ Batch convention (channel-last):
 A training stage adds the stage gating of the optimizable groups, the
 regularizers, the region texture and boundary masks and, for photometric
 stages, the cluster disturbance.
+
+Under a process group (parallel/sharding.py) each rank holds a contiguous
+block of the batch's rows and its energy is built so that the ranks'
+energies sum to the whole batch's: every normalizer that depends on the
+batch (the weight sum, the photometric area, the unweighted row counts) is
+global, all-reduced detached, since none carries a gradient; the
+batch-free regularizers are added on rank 0 only; `reg_diffuse`'s max term
+on the one rank that holds the batch's max. The summed gradient is then
+the whole batch's, as in the JAX package's GSPMD program. The log terms
+are the rank's shares (their sum over ranks is the batch's, the overflow
+counter included, as JAX psums it).
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from vhap_tpu_torch.model.lbs import batch_rodrigues
 from vhap_tpu_torch.ops import camera as cam
 from vhap_tpu_torch.ops.render import RenderSettings, rasterize_mesh, render_rgba
 from vhap_tpu_torch.ops.shading import uniform_sh_lights
+from vhap_tpu_torch.parallel import sharding
 from vhap_tpu_torch.tracker import params as P
 
 
@@ -45,13 +57,23 @@ def normalize_image_points(u, v, resolution):
     return 2 * (u - w / 2.0) / w, 2 * (v - h / 2.0) / h
 
 
-def _wmean(x, w, axis_batch=0):
-    """Weighted mean over all elements with per-sample weights w (B,)."""
+def _wmean(x, w, w_sum=None, axis_batch=0):
+    """Weighted mean over all elements with per-sample weights w (B,);
+    `w_sum` is the batch's weight sum (default: w.sum(), this block's)."""
     bshape = [1] * x.dim()
     bshape[axis_batch] = -1
     wx = x * w.reshape(bshape)
-    denom = w.sum() * (x.numel() / x.shape[axis_batch])
+    denom = (w.sum() if w_sum is None else w_sum) * (x.numel() / x.shape[axis_batch])
     return wx.sum() / torch.clamp(denom, min=1e-12)
+
+
+def _batch_mean(x):
+    """The unweighted mean of x over the whole batch (padded rows count,
+    as in JAX): x.mean(), or under a process group this rank's sum over the
+    batch's element count (every rank holds as many rows)."""
+    if not sharding.is_distributed():
+        return x.mean()
+    return x.sum() / (x.numel() * sharding.world())
 
 
 def fill_cam_params(batch: Dict, params: P.Params, calibrated: bool,
@@ -70,7 +92,7 @@ def fill_cam_params(batch: Dict, params: P.Params, calibrated: bool,
 
 
 def landmark_energy(batch, pred_lmks, K, RT, image_size,
-                    disable_jawline: bool, always_jawline: bool):
+                    disable_jawline: bool, always_jawline: bool, w_sum=None):
     """Confidence-weighted L1 landmark loss (vhap/model/tracker.py:347-389)."""
     h, w = image_size
     lmk2d = batch["lmk2d"]
@@ -93,7 +115,7 @@ def landmark_energy(batch, pred_lmks, K, RT, image_size,
         conf = conf * scale
 
     loss = torch.sum(torch.abs(diff), dim=2) * conf          # (B, L)
-    e = _wmean(loss, batch["weight"])
+    e = _wmean(loss, batch["weight"], w_sum)
     return e, {"gt_lmk2d": gt_xy, "pred_lmk2d": pred_xy,
                "lmk_per_sample": loss.mean(dim=1)}
 
@@ -112,7 +134,7 @@ def photometric_energy(batch, render_out):
     # per-timestep eval losses (tracker.py:1078-1117)
     s = torch.sum(torch.abs(gt - pred), dim=(1, 2, 3), dtype=torch.float32)
     area = pred_mask.sum(dim=(1, 2, 3)) * 3  # mask expanded to 3ch in ref
-    denom = (area * w).sum()
+    denom = sharding.all_reduce_sum((area * w).sum())    # the batch's
     color_loss = (s * w).sum() / torch.clamp(denom, min=1.0)
     per = s / torch.clamp(area, min=1.0)
     aux = {"gt_rgb": gt, "pred_rgb": pred, "error_rgb": gt - pred,
@@ -167,18 +189,28 @@ def regularization_energy(
     params: P.Params, batch, verts, verts_cano, albedo, render_out,
     head: FlameHead, cfg: BaseTrackingConfig, stage_name: str,
     opt: Dict[str, bool], pre: RegPrecomputed, n_timesteps: int,
+    w_sum: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """All regularizers (vhap/model/tracker.py:480-690), stage-gated; the
-    detaches are those of vhap_tpu/tracker/energy.py:218-339."""
+    detaches are those of vhap_tpu/tracker/energy.py:218-339. `w_sum` is the
+    batch's weight sum (default: this block's); under a process group the
+    batch-free terms are rank 0's alone (0 elsewhere)."""
     w_cfg = cfg.w
     log = {}
     ts = batch["timestep_index"].long()
     ts_prev = torch.clamp(ts - 1, 0, n_timesteps - 1)
     bw = batch["weight"]
+    if w_sum is None:
+        w_sum = bw.sum()
     tracking = "tracking" in stage_name
+    lead = sharding.rank() == 0
+
+    def once(term_fn):
+        """A batch-free term, counted once over the ranks: rank 0's."""
+        return term_fn() if lead else torch.zeros((), device=bw.device)
 
     def smooth(cur, prev, weight):
-        return _wmean((cur - prev.detach()) ** 2, bw) * weight
+        return _wmean((cur - prev.detach()) ** 2, bw, w_sum) * weight
 
     if opt["pose"] and tracking:
         log["smooth_pose"] = (
@@ -188,7 +220,7 @@ def regularization_energy(
                      w_cfg.smooth_rot))
 
     if opt["joints"]:
-        log["reg_joint"] = _joint_l2(params, ts, bw, w_cfg)
+        log["reg_joint"] = _joint_l2(params, ts, bw, w_cfg, w_sum)
         if tracking:
             log["smooth_joint"] = (
                 smooth(params["neck_pose"][ts], params["neck_pose"][ts_prev], w_cfg.smooth_neck)
@@ -196,50 +228,62 @@ def regularization_energy(
                 + smooth(params["eyes_pose"][ts], params["eyes_pose"][ts_prev], w_cfg.smooth_eyes))
 
     if opt["expr"]:
-        log["reg_expr"] = w_cfg.reg_expr * _wmean(params["expr"][ts] ** 2, bw)
+        log["reg_expr"] = w_cfg.reg_expr * _wmean(params["expr"][ts] ** 2, bw, w_sum)
         if tracking:
             log["smooth_expr"] = smooth(params["expr"][ts], params["expr"][ts_prev],
                                         w_cfg.smooth_expr)
 
     if opt["shape"]:
-        log["reg_shape"] = w_cfg.reg_shape * torch.mean(params["shape"] ** 2)
+        log["reg_shape"] = once(
+            lambda: w_cfg.reg_shape * torch.mean(params["shape"] ** 2))
 
     if opt["texture"]:
         if not cfg.model.tex_painted and "tex_pca" in params:
-            log["reg_tex_pca"] = w_cfg.reg_tex_pca * torch.mean(params["tex_pca"] ** 2)
+            log["reg_tex_pca"] = once(
+                lambda: w_cfg.reg_tex_pca * torch.mean(params["tex_pca"] ** 2))
         if cfg.model.tex_extra and cfg.model.residual_tex and "tex_extra" in params:
             if w_cfg.reg_tex_tv is not None:
-                # the reference sums the flattened y/x squared diffs
-                # element-wise before averaging (tracker.py:526-534)
-                tex = albedo[0]                          # (3, H, W)
-                tv_y = (tex[:, :-1, :] - tex[:, 1:, :]) ** 2
-                tv_x = (tex[:, :, :-1] - tex[:, :, 1:]) ** 2
-                tv = (tv_y.reshape(3, -1) + tv_x.reshape(3, -1)).mean()
-                w_tv = w_cfg.reg_tex_tv * cfg.data.scale_factor ** 2
-                if cfg.data.n_downsample_rgb is not None:
-                    w_tv /= cfg.data.n_downsample_rgb ** 2
-                log["reg_tex_tv"] = w_tv * tv
+                def tex_tv():
+                    # the reference sums the flattened y/x squared diffs
+                    # element-wise before averaging (tracker.py:526-534)
+                    tex = albedo[0]                      # (3, H, W)
+                    tv_y = (tex[:, :-1, :] - tex[:, 1:, :]) ** 2
+                    tv_x = (tex[:, :, :-1] - tex[:, :, 1:]) ** 2
+                    tv = (tv_y.reshape(3, -1) + tv_x.reshape(3, -1)).mean()
+                    w_tv = w_cfg.reg_tex_tv * cfg.data.scale_factor ** 2
+                    if cfg.data.n_downsample_rgb is not None:
+                        w_tv /= cfg.data.n_downsample_rgb ** 2
+                    return w_tv * tv
+                log["reg_tex_tv"] = once(tex_tv)
             if (w_cfg.reg_tex_res_clusters is not None
                     and pre.tex_res_cluster_mask is not None):
-                m = pre.tex_res_cluster_mask
-                if m.shape[-2:] != params["tex_extra"].shape[-2:]:
-                    # jax.image.resize "nearest" samples at half-pixel
-                    # centres: "nearest-exact", not "nearest"
-                    m = F.interpolate(m[None], size=tuple(params["tex_extra"].shape[-2:]),
-                                      mode="nearest-exact")[0]
-                log["reg_tex_res_clusters"] = (
-                    w_cfg.reg_tex_res_clusters
-                    * torch.mean(params["tex_extra"] ** 2 * m))
+                def tex_res_clusters():
+                    m = pre.tex_res_cluster_mask
+                    if m.shape[-2:] != params["tex_extra"].shape[-2:]:
+                        # jax.image.resize "nearest" samples at half-pixel
+                        # centres: "nearest-exact", not "nearest"
+                        m = F.interpolate(m[None], size=tuple(params["tex_extra"].shape[-2:]),
+                                          mode="nearest-exact")[0]
+                    return (w_cfg.reg_tex_res_clusters
+                            * torch.mean(params["tex_extra"] ** 2 * m))
+                log["reg_tex_res_clusters"] = once(tex_res_clusters)
 
     if opt["lights"] and "lights" in params:
         if w_cfg.reg_light is not None:
             sh0 = torch.as_tensor(uniform_sh_lights(), device=params["lights"].device)
-            log["reg_light"] = w_cfg.reg_light * torch.mean(
-                (params["lights"] - sh0) ** 2)
+            log["reg_light"] = once(lambda: w_cfg.reg_light * torch.mean(
+                (params["lights"] - sh0) ** 2))
         if w_cfg.reg_diffuse is not None and render_out is not None:
             d = render_out["diffuse_detach_normal"]      # (B, H, W, 3)
-            reg = (torch.relu(d.max() - 1.0)
-                   + torch.var(d, dim=-1, correction=1).mean())
+            over = torch.relu(d.max() - 1.0)
+            if sharding.is_distributed():
+                # the batch's max: its gradient reaches the one element that
+                # holds it, so only the lowest rank holding it adds the term
+                # (with its local max); no host sync
+                m = sharding.all_gather_rows(d.max().detach().reshape(1))
+                over = torch.where(torch.argmax(m) == sharding.rank(), over,
+                                   torch.zeros_like(over))
+            reg = over + _batch_mean(torch.var(d, dim=-1, correction=1))
             log["reg_diffuse"] = w_cfg.reg_diffuse * reg
 
     if opt["static_offset"] or opt["dynamic_offset"]:
@@ -259,33 +303,34 @@ def regularization_energy(
                 diff = ((lap_off - lap_base) ** 2).sum(-1, keepdim=True)
                 if pre.offset_lap_relax_w is not None:
                     diff = diff * pre.offset_lap_relax_w[None]
-                log["reg_offset_lap"] = w_cfg.reg_offset_lap * _wmean(diff, bw)
+                log["reg_offset_lap"] = w_cfg.reg_offset_lap * _wmean(diff, bw, w_sum)
             if w_cfg.reg_offset is not None:
                 reg = torch.abs(offset)
                 if pre.offset_relax_w is not None:
                     reg = reg * pre.offset_relax_w[None]
-                log["reg_offset"] = w_cfg.reg_offset * _wmean(reg, bw)
+                log["reg_offset"] = w_cfg.reg_offset * _wmean(reg, bw, w_sum)
             if w_cfg.reg_offset_rigid is not None and pre.rigid_vids:
                 rig = 0.0
                 for vids in pre.rigid_vids:
-                    rig = rig + torch.var(offset[:, vids], dim=-2,
-                                          correction=1).mean()
+                    rig = rig + _batch_mean(torch.var(offset[:, vids], dim=-2,
+                                                      correction=1))
                 log["reg_offset_rigid"] = w_cfg.reg_offset_rigid * rig
             if (w_cfg.reg_offset_dynamic is not None
                     and "dynamic_offset" in params and opt["dynamic_offset"]):
                 d_prev = params["dynamic_offset"][ts_prev]
                 d_cur = params["dynamic_offset"][ts]
                 log["reg_offset_dynamic"] = (
-                    w_cfg.reg_offset_dynamic * _wmean((d_cur - d_prev) ** 2, bw))
+                    w_cfg.reg_offset_dynamic * _wmean((d_cur - d_prev) ** 2, bw, w_sum))
 
     return log
 
 
-def _joint_l2(params, ts, bw, w_cfg):
+def _joint_l2(params, ts, bw, w_cfg, w_sum):
     """Joint priors in rotation-matrix space (vhap/model/tracker.py:650-680).
 
     Replicates the reference's mean over a (2B-1)-row stack where B-1 rows
-    are zero (identity-vs-identity), i.e. an effective B/(2B-1) scaling.
+    are zero (identity-vs-identity), i.e. an effective B/(2B-1) scaling;
+    B is the batch's weight sum `w_sum`.
     """
     poses = [
         ("neck", params["neck_pose"][ts], w_cfg.reg_neck),
@@ -293,7 +338,7 @@ def _joint_l2(params, ts, bw, w_cfg):
         ("eyes", params["eyes_pose"][ts, :3], w_cfg.reg_eyes),
         ("eyes", params["eyes_pose"][ts, 3:], w_cfg.reg_eyes),
     ]
-    sum_w = torch.clamp(bw.sum(), min=1.0)
+    sum_w = torch.clamp(w_sum, min=1.0)
     E = 0.0
     for name, pose, weight in poses:
         R = batch_rodrigues(pose)                           # (B, 3, 3)
@@ -301,11 +346,11 @@ def _joint_l2(params, ts, bw, w_cfg):
         sq = ((eye - R) ** 2).sum(dim=(1, 2)) / 9.0         # per-sample mean
         diff = (sq * bw).sum() / (2 * sum_w - 1)
         if name == "jaw":
-            diff = diff + _wmean(torch.relu(-pose[:, 0]), bw) * 10
-            diff = diff + _wmean(pose[:, 1:] ** 2, bw) * 3
+            diff = diff + _wmean(torch.relu(-pose[:, 0]), bw, w_sum) * 10
+            diff = diff + _wmean(pose[:, 1:] ** 2, bw, w_sum) * 3
         elif name == "eyes":
             diff = diff + _wmean((params["eyes_pose"][ts, :3]
-                                  - params["eyes_pose"][ts, 3:]) ** 2, bw)
+                                  - params["eyes_pose"][ts, 3:]) ** 2, bw, w_sum)
         E = E + diff * weight
     return E
 
@@ -419,6 +464,7 @@ def make_energy_fn(
         log: Dict[str, torch.Tensor] = {}
         aux: Dict[str, torch.Tensor] = {"gt_rgb": batch["rgb"]} if "rgb" in batch else {}
         ts = batch["timestep_index"]
+        w_sum = sharding.all_reduce_sum(batch["weight"].sum())   # the batch's
 
         sliced = P.slice_batch(params, ts)
         B = ts.shape[0]
@@ -441,7 +487,7 @@ def make_energy_fn(
         if cfg.w.landmark is not None:
             e_lmk, lmk_aux = landmark_energy(
                 batch, lmks, K, RT, image_size, disable_jawline,
-                cfg.w.always_enable_jawline_landmarks)
+                cfg.w.always_enable_jawline_landmarks, w_sum)
             log["lmk"] = cfg.w.landmark * e_lmk
             aux.update(lmk_aux)
 
@@ -471,7 +517,7 @@ def make_energy_fn(
         if stage_name is not None:
             log.update(regularization_energy(
                 params, batch, verts, verts_cano, albedo, render_out,
-                head, cfg, stage_name, opt, pre, n_timesteps))
+                head, cfg, stage_name, opt, pre, n_timesteps, w_sum))
 
         E_total = torch.sum(torch.stack(list(log.values())))
         log["total"] = E_total

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from vhap_tpu_torch.config.base import BaseTrackingConfig
+from vhap_tpu_torch.parallel import sharding
 from vhap_tpu_torch.tracker import params as P
 
 BETA1, BETA2, EPS = 0.9, 0.999, 1e-8   # torch.optim.Adam's defaults
@@ -73,14 +74,21 @@ def loss_and_grads(energy_fn: Callable, params: P.Params,
                    opt_leaves: FrozenSet[str], batch: Dict,
                    generator: torch.Generator):
     """(E, log, grads): the energy and the gradients of the optimizable
-    leaves only; the frozen leaves enter as constants."""
+    leaves only; the frozen leaves enter as constants, and a leaf the
+    energy does not reach has gradient 0 (as in JAX). Under a process
+    group E and log are this rank's shares of the batch's (their sum over
+    ranks) and the gradients are summed over ranks (one all-reduce), so
+    they are the batch's on every rank."""
     opt_keys = sorted(opt_leaves)
     opt_params = {k: params[k].detach().requires_grad_(True) for k in opt_keys}
     frozen = {k: v for k, v in params.items() if k not in opt_leaves}
     E, (log, _aux) = energy_fn({**frozen, **opt_params}, batch, generator)
-    grads = torch.autograd.grad(E, [opt_params[k] for k in opt_keys])
+    grads = torch.autograd.grad(E, [opt_params[k] for k in opt_keys],
+                                allow_unused=True)
+    grads = {k: torch.zeros_like(opt_params[k]) if g is None else g
+             for k, g in zip(opt_keys, grads)}
     log = {k: v.detach() for k, v in log.items()}
-    return E.detach(), log, dict(zip(opt_keys, grads))
+    return E.detach(), log, sharding.all_reduce_grads(grads)
 
 
 def adam_update(grads: Dict[str, torch.Tensor], state: Dict):

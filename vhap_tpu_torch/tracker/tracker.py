@@ -26,13 +26,26 @@ Calibrated multiview data (`data.calibrated=True`, NeRSemble) batches all
 views of one timestep per step, with the dataset's cameras (the focal
 length is then neither created nor optimized). Missing landmark files are
 detected on construction with the configured source (preprocess/landmarks.py)
-on the tracker's device. Not in the port, raising a clear error: more than
-one device (`exp.num_devices > 1`).
+on the tracker's device.
+
+Several devices (`exp.num_devices`, parallel/sharding.py): one process per
+device, each a GlobalTracker in one process group, started by `run_tracker`
+(the entry points), `sharding.launch` or torchrun. Every batch is padded
+to a multiple of the process count with weight-0 rows and each rank loads
+and renders its contiguous block of rows; the parameters and Adam's state
+are replicated, the gradients all-reduced before Adam, and the energy's
+normalizers, the disturbance pool and the logged terms are the whole
+batch's. Each rank draws from its own generator (seeded with its rank).
+Rank 0 alone makes the output folder, detects landmarks and writes: logs,
+scalars, media, checkpoints and the run state, which holds every rank's
+generator. Collectives come from the main thread only; the prefetch and
+media threads issue none.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import threading
 import time
 from collections import Counter
@@ -51,6 +64,7 @@ from vhap_tpu_torch.config.cli import save_yaml
 from vhap_tpu_torch.data.video_dataset import SOURCE_DIRS
 from vhap_tpu_torch.device import resolve_device
 from vhap_tpu_torch.model.flame import FlameHead, FlameTexPainted, FlameTexPCA
+from vhap_tpu_torch.parallel import sharding
 from vhap_tpu_torch.tracker import media
 from vhap_tpu_torch.tracker import params as P
 from vhap_tpu_torch.tracker.energy import make_albedo_fn, make_energy_fn
@@ -101,6 +115,16 @@ class ScalarWriter:
             pass
 
 
+class _NullWriter:
+    """The scalar writer of a rank other than 0: it writes nothing."""
+
+    def add_scalar(self, tag: str, value, step: int):
+        pass
+
+    def close(self):
+        pass
+
+
 class _HostCopy:
     """Tensors copied to the host behind the device work that makes them:
     pinned buffers and one event on CUDA (`wait` blocks on the event only),
@@ -131,15 +155,23 @@ class GlobalTracker:
         self.cfg = cfg
         self.device = resolve_device(device if device is not None else cfg.device)
         self.calibrated = cfg.data.calibrated
-        if cfg.exp.num_devices > 1:
-            raise NotImplementedError(
-                f"exp.num_devices={cfg.exp.num_devices}: the port tracks on "
-                "one device (multi-GPU data parallelism is not ported)")
+        # this process is rank `rank` of `world` (1 without a process group)
+        self.rank, self.world = sharding.rank(), sharding.world()
+        self.lead = self.rank == 0
+        # exp.num_devices as run_tracker reads it: 0 is every visible card
+        if (not sharding.is_distributed()
+                and len(sharding.plan(cfg.exp.num_devices, self.device)[0]) > 1):
+            raise RuntimeError(
+                f"exp.num_devices={cfg.exp.num_devices} runs one process per "
+                "device: start the tracker with tracker.run_tracker (the entry "
+                "points), parallel.sharding.launch or torchrun, or set "
+                "exp.num_devices=1")
         cfg.render.check_portable()
         dev = self.device
 
-        # landmark annotation: detect once unless existing files can be reused
-        self._maybe_detect_landmarks(cfg)
+        # landmark annotation: detect once unless existing files can be
+        # reused; rank 0 detects, the others wait for its files
+        sharding.run_on_lead(lambda: self._maybe_detect_landmarks(cfg))
 
         # model
         self.head = FlameHead.build(
@@ -160,12 +192,21 @@ class GlobalTracker:
                    if assets.tex_mean is not None else None)
         self.get_albedo = make_albedo_fn(cfg, tex_painted, tex_pca)
 
-        # output dir + logging
-        self.out_dir = self._new_out_dir(Path(cfg.exp.output_folder))
-        self.writer = ScalarWriter(self.out_dir)
-        save_yaml(cfg, self.out_dir / "config.yml")
-        self.logger = get_logger(__name__, root=True, log_dir=self.out_dir)
-        self.logger.info(f"Tracking on {dev}")
+        # output dir + logging: rank 0's folder, the only writer
+        out_dir = self._new_out_dir(Path(cfg.exp.output_folder)) if self.lead else None
+        self.out_dir = Path(sharding.broadcast_object(out_dir))
+        if self.lead:
+            self.writer = ScalarWriter(self.out_dir)
+            save_yaml(cfg, self.out_dir / "config.yml")
+        else:
+            self.writer = _NullWriter()
+        self.logger = get_logger(__name__, root=True,
+                                 log_dir=self.out_dir if self.lead else None,
+                                 level=logging.INFO if self.lead else logging.WARNING)
+        self.logger.info(
+            f"Tracking on {dev}" if self.world == 1 else
+            f"Tracking on {self.world} processes, the batch sharded and the "
+            f"parameters replicated; rank 0 on {dev}")
 
         # data: calibrated multiview batches every view of one timestep
         self.dataset = import_module(cfg.data._target)(
@@ -195,10 +236,11 @@ class GlobalTracker:
         if cfg.model.flame_params_path is not None:
             self.params = P.load_from_tracked_flame_params(
                 self.params, cfg.model.flame_params_path)
+        self.params = sharding.replicate_tree(self.params)
 
         self.global_step = 0
         self.timestep = cfg.begin_timestep
-        self.generator = torch.Generator(device=dev).manual_seed(0)
+        self.generator = torch.Generator(device=dev).manual_seed(self.rank)
         # media logging rides one background thread: the device->host copies
         # are queued on the stream, the conversion and image IO run there.
         # At most 4 tasks are in flight, each holding host copies only.
@@ -250,28 +292,49 @@ class GlobalTracker:
     # batching
     # ------------------------------------------------------------------
 
+    def _my_rows(self, rows: List[int], weight: np.ndarray):
+        """(this rank's rows, their weights, the whole batch): `rows` and
+        `weight` padded to a multiple of the process count
+        (sharding.pad_batch_to_devices) and cut into contiguous blocks
+        (sharding.shard_batch)."""
+        full = sharding.pad_batch_to_devices(
+            {"row": np.asarray(rows), "weight": weight}, self.world)
+        mine = sharding.shard_batch(full, self.rank, self.world)
+        return [int(r) for r in mine["row"]], mine["weight"], full
+
     def _host_batch(self, indices: List[int]) -> Dict[str, torch.Tensor]:
         """Collate frame indices into a padded host batch (pinned when the
         tracker computes on the card); padded samples have weight 0. With
         all views batched, `indices` is one timestep and the batch its
-        views, with their cameras (vhap_tpu/tracker/tracker.py:205-221)."""
+        views, with their cameras (vhap_tpu/tracker/tracker.py:205-221).
+        Under a process group this rank loads its block of the batch's rows
+        only; the whole batch's timestep indices and weights ride along as
+        `global_timestep_index` and `global_weight`."""
         if self.batchify_all_views:
             assert len(indices) == 1
-            item = self.dataset.getitem_by_timestep(indices[0])
-            n = item["rgb"].shape[0]
+            t = indices[0]
+            n = self.dataset.num_cameras
+            views, weight, full = self._my_rows(list(range(n)), np.ones(n, np.float32))
+            item = self.dataset.getitem_by_timestep(t, views if self.world > 1 else None)
+            k = len(views)
             batch = {
                 "rgb": torch.from_numpy(np.asarray(item["rgb"], np.float32)),
-                "timestep_index": torch.full((n,), indices[0], dtype=torch.int32),
-                "weight": torch.ones(n),
+                "timestep_index": torch.full((k,), t, dtype=torch.int32),
+                "weight": torch.from_numpy(weight),
             }
-            for k in ("lmk2d", "intrinsic", "extrinsic"):
-                if k in item:
-                    batch[k] = torch.from_numpy(np.asarray(item[k], np.float32))
+            for key in ("lmk2d", "intrinsic", "extrinsic"):
+                if key in item:
+                    batch[key] = torch.from_numpy(np.asarray(item[key], np.float32))
+            if self.world > 1:
+                batch["global_timestep_index"] = torch.full(
+                    (len(full["row"]),), t, dtype=torch.int32)
+                batch["global_weight"] = torch.from_numpy(full["weight"])
             return self._pin(batch)
         bs = self.cfg.batch_size
         pad = bs - len(indices)
         idx = list(indices) + [indices[-1]] * pad
         weight = np.asarray([1.0] * len(indices) + [0.0] * pad, np.float32)
+        idx, weight, full = self._my_rows(idx, weight)
         # the C++ loader where the dataset qualifies, else PIL frame by frame
         # (vhap_tpu/tracker/tracker.py:229-240)
         native = (self.dataset.load_batch_native(idx)
@@ -295,7 +358,18 @@ class GlobalTracker:
         }
         if lmks is not None:
             batch["lmk2d"] = torch.from_numpy(np.stack(lmks).astype(np.float32))
+        if self.world > 1:
+            batch["global_timestep_index"] = torch.from_numpy(np.asarray(
+                [self.dataset.items[i]["timestep_index"] for i in full["row"]],
+                np.int32))
+            batch["global_weight"] = torch.from_numpy(full["weight"])
         return self._pin(batch)
+
+    @staticmethod
+    def _global_rows(host: Dict[str, torch.Tensor]):
+        """The whole batch's (timestep indices, weights) of a host batch."""
+        return (host.get("global_timestep_index", host["timestep_index"]).numpy(),
+                host.get("global_weight", host["weight"]).numpy())
 
     def _pin(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self.device.type == "cuda":
@@ -391,7 +465,7 @@ class GlobalTracker:
         self.step_timer.tick(stage)
         interval = self.cfg.log.interval_scalar or 100
         if self.global_step % interval == 0:
-            vals = {k: float(v) for k, v in log.items()}     # the one sync
+            vals = self._read_log(log)                       # the one sync
             if not np.isfinite(vals["total"]):
                 self.logger.error(
                     f"[train-{stage}] step {self.global_step}: non-finite "
@@ -409,13 +483,27 @@ class GlobalTracker:
         if self.global_step % media_interval == 0:
             self._log_media(batch, stage=stage)
 
+    @staticmethod
+    def _read_log(log: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """The log's values on the host, summed over the ranks (each rank's
+        terms are its shares of the batch's)."""
+        keys = list(log)
+        v = sharding.all_reduce_sum(torch.stack([log[k].reshape(()) for k in keys]))
+        return dict(zip(keys, v.tolist()))
+
     # ------------------------------------------------------------------
     # mid-run checkpoint / resume
     # ------------------------------------------------------------------
 
     def save_run_state(self, phase: str, cursor: int, epoch: int = 0):
         """Resumable snapshot: params + schedule cursor + generator state
-        (a uint8 array under `key`)."""
+        (a uint8 array under `key`; under a process group every rank's, one
+        row each). Rank 0 writes it."""
+        key = self.generator.get_state()
+        if self.world > 1:
+            key = sharding.all_gather_rows(key.to(torch.int32)[None]).to(torch.uint8)
+        if not self.lead:
+            return
         state = {f"param/{k}": v.detach().cpu().numpy()
                  for k, v in self.params.items()}
         state.update({
@@ -423,7 +511,7 @@ class GlobalTracker:
             "cursor": np.asarray(cursor),
             "epoch": np.asarray(epoch),
             "global_step": np.asarray(self.global_step),
-            "key": self.generator.get_state().numpy(),
+            "key": key.numpy(),
         })
         np.savez(self.out_dir / "run_state.npz", **state)
 
@@ -435,10 +523,18 @@ class GlobalTracker:
                     if name in self.params:
                         self.params[name] = torch.as_tensor(
                             np.asarray(z[k], np.float32), device=self.device)
+            self.params = sharding.replicate_tree(self.params)
             self.global_step = int(z["global_step"])
             key = np.asarray(z["key"])
-            if key.dtype == np.uint8:
+            if key.dtype == np.uint8 and key.ndim == 1 and self.world == 1:
                 self.generator.set_state(torch.from_numpy(key.copy()))
+            elif key.dtype == np.uint8 and key.shape[0] == self.world and key.ndim == 2:
+                self.generator.set_state(torch.from_numpy(key[self.rank].copy()))
+            elif key.dtype == np.uint8:
+                self.logger.warning(
+                    f"run state of {key.shape[0] if key.ndim == 2 else 1} "
+                    f"process(es)' generators, run on {self.world}: keeping "
+                    f"seed {self.rank}")
             else:
                 # a JAX PRNG key: its stream cannot be continued here
                 self.logger.warning(f"run state key of dtype {key.dtype} is not "
@@ -482,8 +578,7 @@ class GlobalTracker:
     def _run_sequential_phase(self, skip_until: int = -1):
         cfg = self.cfg
         for host in self._prefetch(self._batches(shuffle=False)):
-            ts = host["timestep_index"].numpy()
-            w = host["weight"].numpy()
+            ts, w = self._global_rows(host)
             if skip_until >= 0 and int(ts[0]) <= skip_until:
                 continue
             batch = self._to_device(host)
@@ -540,14 +635,17 @@ class GlobalTracker:
 
     def _media_copy(self, aux, batch) -> _HostCopy:
         """Queue the host copies the media writer needs: the grid's views
-        of the image buffers, the first sample's mesh and the albedo map."""
-        vi = list(self._view_indices(aux["gt_rgb"].shape[0]))
-        sel = torch.as_tensor(vi, device=aux["gt_rgb"].device)
-        out = {k: aux[k].index_select(0, sel) for k in _MEDIA_VIEW_KEYS if k in aux}
+        of the image buffers, the first sample's mesh and the albedo map.
+        Under a process group the views are gathered from the ranks that
+        hold them (collectives; every rank calls this)."""
+        n_rows = (self.dataset.num_cameras if self.batchify_all_views
+                  else self.cfg.batch_size)     # the one-process batch's rows
+        vi = list(self._view_indices(n_rows))
+        out = {k: sharding.select_rows(aux[k], vi) for k in _MEDIA_VIEW_KEYS if k in aux}
         if "verts" in aux:
-            out["verts"] = aux["verts"][:1]
+            out["verts"] = sharding.select_rows(aux["verts"], [0])
             out["albedo_map"] = aux["albedo_map"][:1]
-        out["timestep_index"] = batch["timestep_index"][:1]
+        out["timestep_index"] = sharding.select_rows(batch["timestep_index"], [0])
         return _HostCopy(out)
 
     def evaluate(self, make_visualization: bool = True, epoch: int = 0):
@@ -591,11 +689,13 @@ class GlobalTracker:
             batch = self._make_batch(chunk)
             E, (log, aux) = energy(self.params, batch)
             if self.batchify_all_views:
-                per_copy = _HostCopy({f"{k}_per_sample": log[k].reshape(1)
-                                      for k in ("lmk", "photo", "total")
-                                      if k in log})
+                keys = [k for k in ("lmk", "photo", "total") if k in log]
+                per = sharding.all_reduce_sum(torch.stack([log[k] for k in keys]))
+                per_copy = _HostCopy({f"{k}_per_sample": per[i].reshape(1)
+                                      for i, k in enumerate(keys)})
             else:
-                per_copy = _HostCopy({k: v for k, v in aux.items()
+                per_copy = _HostCopy({k: sharding.all_gather_rows(v)
+                                      for k, v in aux.items()
                                       if k.endswith("_per_sample")})
             media_copy = (self._media_copy(aux, batch)
                           if make_visualization
@@ -612,6 +712,8 @@ class GlobalTracker:
         try:
             E, (log, aux) = self._eval_energy()(self.params, batch)
             copy = self._media_copy(aux, batch)
+            if not self.lead:
+                return
             step = self.global_step
 
             def task():
@@ -620,13 +722,20 @@ class GlobalTracker:
                                  timestep=int(arrays["timestep_index"][0]),
                                  stage=stage, step=step)
             self._submit_media(task)
-        except Exception as e:  # media logging must never kill a run
+        except Exception as e:  # media logging must never kill a run ...
+            if self.world > 1:
+                # ... but a rank that skipped the collectives above would
+                # leave the others waiting in them
+                raise
             self.logger.warning(f"media logging failed: {e}")
 
     def _submit_media(self, task):
         """Submit a media-write task to the single background writer,
         blocking while 4 tasks are in flight. The wait is accounted to
-        `media_blocked_s`; the write itself to `media_write_s`."""
+        `media_blocked_s`; the write itself to `media_write_s`. Rank 0
+        writes; the others drop the task."""
+        if not self.lead:
+            return
         t0 = time.perf_counter()
         self._media_sem.acquire()
         waited = time.perf_counter() - t0
@@ -682,6 +791,8 @@ class GlobalTracker:
                 mesh_dir / f"{stem}.{fmt}")
 
     def save_result(self, epoch: Optional[int] = None):
+        if not self.lead:
+            return
         fname = "tracked_flame_params"
         if epoch is not None:
             fname = f"{fname}_{epoch}"
@@ -692,3 +803,59 @@ class GlobalTracker:
             image_size=np.asarray(self.image_size),
             calibrated=self.calibrated,
             tex_painted=self.cfg.model.tex_painted)
+
+    def summary(self) -> Dict:
+        """What a run leaves besides its files, picklable (a launched
+        worker's return value)."""
+        return {
+            "rank": self.rank, "world": self.world, "device": str(self.device),
+            "out_dir": str(self.out_dir), "dataset": type(self.dataset).__name__,
+            "calibrated": self.calibrated, "batchify_all_views": self.batchify_all_views,
+            "color_correction": bool(getattr(self.dataset, "color_correction", None)),
+            "n_timesteps": self.n_timesteps, "global_step": self.global_step,
+            "steps_by_stage": dict(self.steps_by_stage),
+            "ms_per_step": {st: self.step_timer.median_ms(st)
+                            for st in self.steps_by_stage},
+            "eval_calls": self.eval_calls,
+            "media_write_s": self.media_write_s,
+            "media_blocked_s": self.media_blocked_s,
+            "native_batches": getattr(self.dataset, "native_batches", None),
+            "pil_batches": getattr(self.dataset, "pil_batches", None),
+        }
+
+
+# the longest wait of one collective in run_tracker's processes: the ranks
+# meet at every step, and rank 0's landmark detection is waited for in
+# polls (sharding.run_on_lead)
+COLLECTIVE_TIMEOUT_S = 300.0
+
+
+def track_worker(device, cfg: BaseTrackingConfig) -> Dict:
+    """Track on `device` (None: cfg.device), resuming from
+    cfg.exp.resume_run_state if set, and return the summary: one rank of a
+    launched run (sharding.launch), or the whole of a one-process one."""
+    tr = GlobalTracker(cfg, device)
+    tr.optimize(resume_state_path=cfg.exp.resume_run_state)
+    return tr.summary()
+
+
+def run_tracker(cfg: BaseTrackingConfig) -> Dict:
+    """Track as the entry points do and return the run's summary (rank
+    0's). One device (cfg.exp.num_devices and cfg.device, sharding.plan):
+    a GlobalTracker in this process. Several: one process per device
+    through sharding.launch (NCCL on the cards, gloo with device 'cpu'); a
+    failing rank stops the others and makes this raise. Under torchrun
+    (RANK / WORLD_SIZE set) this process joins torchrun's group and tracks
+    as its rank. A collective that waits COLLECTIVE_TIMEOUT_S fails the
+    run."""
+    if sharding.from_torchrun() and not sharding.is_distributed():
+        dev = sharding.init_from_env(cfg.device, COLLECTIVE_TIMEOUT_S)
+        return track_worker(dev, cfg)
+    devices, backend = sharding.plan(cfg.exp.num_devices, cfg.device)
+    if len(devices) > 1 and not sharding.is_distributed():
+        get_logger(__name__).info(
+            f"Sharding the batch axis over {len(devices)} devices "
+            f"({', '.join(devices)}), one {backend} process each")
+        return sharding.launch(track_worker, devices, backend, args=(cfg,),
+                               timeout=COLLECTIVE_TIMEOUT_S)[0]
+    return track_worker(None, cfg)
