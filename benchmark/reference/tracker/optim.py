@@ -1,0 +1,144 @@
+"""Per-leaf Adam with stage-dependent optimizable subsets.
+
+Counterpart of vhap_tpu/tracker/optim.py (reference: the torch param
+groups of vhap/model/tracker.py:159-211): a leaf -> learning-rate map
+applied after Adam's bias-corrected update; the per-epoch ExponentialLR of
+the global stage is the step's `lr_factor` argument.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, FrozenSet, Tuple
+
+import numpy as np
+import torch
+
+from reference.config.base import BaseTrackingConfig
+from reference.parallel import sharding
+from reference.tracker import params as P
+
+BETA1, BETA2, EPS = 0.9, 0.999, 1e-8   # torch.optim.Adam's defaults
+
+
+def leaf_learning_rates(cfg: BaseTrackingConfig) -> Dict[str, float]:
+    """Leaf name -> lr (group table at vhap/model/tracker.py:171-202)."""
+    lr = cfg.lr
+    return {
+        "shape": lr.base,
+        "rotation": lr.base,
+        "neck_pose": lr.base,
+        "jaw_pose": lr.base,
+        "eyes_pose": lr.base,
+        "tex_pca": lr.base,
+        "tex_extra": lr.base,
+        "translation": lr.translation,
+        "expr": lr.expr,
+        "lights": lr.light,
+        "focal_length": lr.camera,
+        "static_offset": lr.static_offset,
+        "dynamic_offset": lr.dynamic_offset,
+    }
+
+
+def stage_optimizable_leaves(cfg: BaseTrackingConfig, stage_name: str,
+                             params: P.Params) -> FrozenSet[str]:
+    """optimizable_params groups -> parameter leaves
+    (get_train_parameters, vhap/model/tracker.py:1465-1513)."""
+    opt = set(cfg.pipeline[stage_name].optimizable_params)
+    leaves = set()
+    if "cam" in opt and not cfg.data.calibrated and "focal_length" in params:
+        leaves.add("focal_length")
+    if "shape" in opt:
+        leaves.add("shape")
+    if "texture" in opt:
+        if not cfg.model.tex_painted and "tex_pca" in params:
+            leaves.add("tex_pca")
+        if cfg.model.tex_extra and "tex_extra" in params:
+            leaves.add("tex_extra")
+    if "static_offset" in opt and "static_offset" in params:
+        leaves.add("static_offset")
+    if "lights" in opt and "lights" in params:
+        leaves.add("lights")
+    if "pose" in opt:
+        leaves.update(("translation", "rotation"))
+    if "joints" in opt:
+        leaves.update(("eyes_pose", "neck_pose", "jaw_pose"))
+    if "expr" in opt:
+        leaves.add("expr")
+    if "dynamic_offset" in opt and "dynamic_offset" in params:
+        leaves.add("dynamic_offset")
+    return frozenset(leaves)
+
+
+def loss_and_grads(energy_fn: Callable, params: P.Params,
+                   opt_leaves: FrozenSet[str], batch: Dict,
+                   generator: torch.Generator):
+    """(E, log, grads): the energy and the gradients of the optimizable
+    leaves only; the frozen leaves enter as constants, and a leaf the
+    energy does not reach has gradient 0 (as in JAX). Under a process
+    group E and log are this rank's shares of the batch's (their sum over
+    ranks) and the gradients are summed over ranks (one all-reduce), so
+    they are the batch's on every rank."""
+    opt_keys = sorted(opt_leaves)
+    opt_params = {k: params[k].detach().requires_grad_(True) for k in opt_keys}
+    frozen = {k: v for k, v in params.items() if k not in opt_leaves}
+    E, (log, _aux) = energy_fn({**frozen, **opt_params}, batch, generator)
+    grads = torch.autograd.grad(E, [opt_params[k] for k in opt_keys],
+                                allow_unused=True)
+    grads = {k: torch.zeros_like(opt_params[k]) if g is None else g
+             for k, g in zip(opt_keys, grads)}
+    log = {k: v.detach() for k, v in log.items()}
+    return E.detach(), log, sharding.all_reduce_grads(grads)
+
+
+def adam_update(grads: Dict[str, torch.Tensor], state: Dict):
+    """One bias-corrected Adam direction per leaf (optax.scale_by_adam,
+    betas (0.9, 0.999), eps 1e-8, eps_root 0) -> (updates, new state).
+    The bias corrections 1 - beta**count are formed in float32, as optax
+    forms them (1 - 0.999 in float32 is 1.3e-5 off its exact value, which
+    moves the first steps' update by 6e-6 relative)."""
+    count = state["count"] + 1
+    mu = {k: (1 - BETA1) * g + BETA1 * state["mu"][k] for k, g in grads.items()}
+    nu = {k: (1 - BETA2) * (g * g) + BETA2 * state["nu"][k]
+          for k, g in grads.items()}
+    one = np.float32(1.0)
+    c1 = float(one - np.float32(BETA1) ** np.float32(count))
+    c2 = float(one - np.float32(BETA2) ** np.float32(count))
+    updates = {k: (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + EPS) for k in grads}
+    return updates, {"count": count, "mu": mu, "nu": nu}
+
+
+def make_train_step(
+    energy_fn: Callable,
+    opt_leaves: FrozenSet[str],
+    lr_map: Dict[str, float],
+    lr_scale: float = 1.0,
+) -> Tuple[Callable, Callable]:
+    """Returns (init_opt_state(params), step(params, opt_state, batch,
+    generator, lr_factor=1.0) -> (params, opt_state, E, log)).
+
+    Adam is plain tensor code on an explicit state dict (step count, first
+    and second moments per optimizable leaf, as optax.scale_by_adam's; see
+    `adam_update`), on whole (T, ...) leaves, so it equals the JAX
+    package's optax.scale_by_adam + lr map step for step:
+    p <- p - lr_map[k] * lr_scale * lr_factor * update. The step returns a
+    new params dict: optimizable leaves are new tensors, frozen leaves are
+    the caller's tensors, untouched.
+    """
+    def init_opt_state(params: P.Params) -> Dict:
+        keys = sorted(opt_leaves)
+        return {"count": 0,
+                "mu": {k: torch.zeros_like(params[k]) for k in keys},
+                "nu": {k: torch.zeros_like(params[k]) for k in keys}}
+
+    def step(params: P.Params, opt_state: Dict, batch: Dict,
+             generator: torch.Generator, lr_factor: float = 1.0):
+        E, log, grads = loss_and_grads(energy_fn, params, opt_leaves, batch,
+                                       generator)
+        with torch.no_grad():
+            updates, opt_state = adam_update(grads, opt_state)
+            new = {k: params[k] + (-lr_map[k] * lr_scale) * lr_factor * updates[k]
+                   for k in updates}
+        return {**params, **new}, opt_state, E, log
+
+    return init_opt_state, step
