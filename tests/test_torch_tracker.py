@@ -372,24 +372,158 @@ def test_image_folder_dataset_matches_jax(seq):
         np.testing.assert_array_equal(b["background"], a["background"])
 
 
-def test_step_timer_and_device_trace(tmp_path):
-    """StepTimer's per-stage medians (chip_smoke.py reads them) and
-    device_trace's torch.profiler trace."""
-    import json
+def _span_tree(names, parents):
+    """(name, enclosing span's name or None) of each span, in order."""
+    return [(n, names[p] if p >= 0 else None) for n, p in zip(names, parents)]
+
+
+@pytest.fixture(scope="module")
+def span_runs(seq, tmp_path_factory):
+    """The sequential phase of one tiny photometric schedule (16^2, 8
+    steps: 4 of them render) twice, spans off (record_function counted)
+    and on, and once cut to its first rgb step, spans on under
+    torch.profiler (whose events of a step take a second to list).
+    Returns {run: (tracker, spans)} and the names record_function was
+    entered with in the run with spans off."""
+    from vhap_tpu_torch.tracker.tracker import GlobalTracker
+    from vhap_tpu_torch.util import profiling
+    root, _ = seq
+    out = tmp_path_factory.mktemp("spans")
+
+    def run(name, spans, profile=False):
+        cfg = _cfg(TConfig, root, out / name, init=2, seq_steps=2)
+        cfg.exp.photometric = True
+        cfg.w.photo = 30.0
+        cfg.model.tex_resolution = 32
+        cfg.data.scale_factor = 0.125        # 128 -> 16 pixels
+        cfg.pipeline.rgb_init_texture.num_steps = 1
+        cfg.pipeline.rgb_init_all.num_steps = 1
+        cfg.pipeline.rgb_sequential_tracking.num_steps = 1
+        if profile:
+            for stage in ("lmk_init_rigid", "lmk_init_all", "rgb_init_all",
+                          "rgb_sequential_tracking"):
+                cfg.pipeline[stage].num_steps = 0
+        cfg.__post_init__()
+        tr = GlobalTracker(cfg, device="cpu")
+        profiling.take_spans()
+        profiling.enable_spans(spans)
+        try:
+            if profile:
+                from torch.profiler import ProfilerActivity
+                with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+                    tr._run_sequential_phase()
+                tr.events = prof.events()
+            else:
+                tr._run_sequential_phase()
+        finally:
+            profiling.enable_spans(False)
+        return tr, profiling.take_spans()
+
+    entered = []
+
+    class Counted(torch.profiler.record_function):
+        def __enter__(self):
+            entered.append(self.name)
+            return super().__enter__()
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.profiler, "record_function", Counted)
+        mp.setattr(torch.autograd.profiler, "record_function", Counted)
+        runs = {"off": run("off", False)}
+    runs["on"] = run("on", True)
+    runs["profiled"] = run("profiled", True, profile=True)
+    return runs, entered
+
+
+def test_spans_nest_by_layer(span_runs):
+    """Each train step records one `step` whose children are its forward,
+    backward and Adam, in that order; FLAME and the render sit in the
+    forward, the render's parts in the render, in pipeline order; the
+    loop's spans sit outside every step."""
+    runs, _ = span_runs
+    tr, spans = runs["on"]
+    names = [s.name for s in spans]
+    tree = _span_tree(names, [s.parent for s in spans])
+    steps = [i for i, n in enumerate(names) if n == "step"]
+    assert tr.global_step == len(steps) == 8
+    for i in steps:
+        assert [n for n, s in zip(names, spans) if s.parent == i] == \
+            ["step.forward", "step.backward", "step.adam"]
+    renders = [i for i, n in enumerate(names) if n == "render"]
+    assert len(renders) == 4                       # the rgb stages' steps
+    for i in renders:
+        assert tree[i] == ("render", "step.forward")
+        assert [n for n, s in zip(names, spans) if s.parent == i] == \
+            ["render.raster", "render.interp", "render.texture",
+             "render.disturb", "render.antialias"]
+    assert names.count("flame") == 8
+    assert all(p == "step.forward" for n, p in tree if n == "flame")
+    loop = [(n, p) for n, p in tree if n.startswith("loop.")]
+    assert all(p is None for _, p in loop)
+    counts = {n: names.count(n) for n, _ in loop}
+    # two batches and the end of the sequence; a checkpoint after each
+    # batch and the phase's last; one log a step
+    assert counts == {"loop.batch_wait": 3, "loop.h2d": 2, "loop.warm_start": 2,
+                      "loop.checkpoint": 3, "loop.log": 8}
+    for s in spans:
+        assert s.start <= s.end
+        if s.parent >= 0:
+            p = spans[s.parent]
+            assert p.start <= s.start and s.end <= p.end
+
+
+def test_spans_off_record_nothing(span_runs):
+    """With spans off nothing is recorded and record_function is never
+    entered; the parameters come out bit-identical to the run with spans
+    on."""
+    runs, entered = span_runs
+    (off, spans_off), (on, _) = runs["off"], runs["on"]
+    assert spans_off == [] and entered == []
+    assert off.global_step == on.global_step
+    assert set(off.params) == set(on.params)
+    for k in off.params:
+        assert torch.equal(off.params[k], on.params[k]), k
+    assert torch.equal(off.generator.get_state(), on.generator.get_state())
+
+
+def test_step_timer_and_device_trace(span_runs):
+    """StepTimer's per-stage medians (chip_smoke.py reads them), and the
+    spans under torch.profiler: each is a user annotation on the host,
+    and the annotations nest as the in-memory records do."""
     import time
 
-    from vhap_tpu_torch.util.profiling import StepTimer, device_trace
+    from vhap_tpu_torch.util.profiling import StepTimer
     timer = StepTimer()
     for stage, dt in (("a", 0.002), ("a", 0.004), ("a", 0.001)):
         timer.tick(stage)
         time.sleep(dt)
     timer.tick("a")
-    assert timer.stage_steps["a"] == 3 and 1.5 <= timer.median_ms("a") < 100
+    assert len(timer.stage_deltas["a"]) == 3 and 1.5 <= timer.median_ms("a") < 100
+    assert timer.steps_per_sec > 0
     timer.reset_clock()
     timer.tick("b")
-    assert timer.median_ms("b") is None and "seconds/a" in timer.summary()
-    with device_trace(tmp_path / "trace"):
-        torch.ones(8) @ torch.ones(8)
-    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert any("matmul" in e.get("name", "") or "dot" in e.get("name", "")
-               for e in trace["traceEvents"])
+    assert timer.median_ms("b") is None and "b" not in timer.stage_deltas
+
+    runs, _ = span_runs
+    tr, spans = runs["profiled"]
+    names = {s.name for s in spans}
+    events = sorted((ev for ev in tr.events if ev.name in names
+                     and ev.device_type == torch.autograd.DeviceType.CPU),
+                    key=lambda ev: ev.time_range.start)
+    assert events and all(ev.is_user_annotation for ev in events)
+
+    def enclosing(ev):
+        p = ev.cpu_parent
+        while p is not None and p.name not in names:
+            p = p.cpu_parent
+        return p.name if p is not None else None
+
+    assert [(ev.name, enclosing(ev)) for ev in events] == \
+        _span_tree([s.name for s in spans], [s.parent for s in spans])
+    # profile_eval's render sections read these annotations (no device here)
+    from vhap_tpu_torch.tools.profile_eval import RENDER_SPANS, span_section
+    sections = {n: span_section(tr.events, n, 1) for n in RENDER_SPANS}
+    assert all(s["forward"]["host_ops"] > 0 and s["forward"]["device_ms"] == 0
+               for s in sections.values()), sections
+    assert sections["render.texture"]["backward"]["host_ops"] > 0
+    assert sections["render.interp"]["backward"]["host_ops"] > 0

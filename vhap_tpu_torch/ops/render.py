@@ -40,6 +40,7 @@ from vhap_tpu_torch.ops.shading import (compute_face_normals,
                                         shade)
 from vhap_tpu_torch.ops.texture import texture_sample
 from vhap_tpu_torch.parallel import sharding
+from vhap_tpu_torch.util.profiling import span
 
 
 @dataclass(frozen=True)
@@ -76,16 +77,17 @@ def rasterize_mesh(verts, faces, RT, K, image_size, settings: RenderSettings,
     verts_clip = cam.camera_to_clip(verts_camera, K, image_size)
     out = dict(verts=verts, verts_camera=verts_camera[..., :3],
                verts_clip=verts_clip)
-    if with_attrs:
-        rast, rast_db, tri_id, overflow = rasterize(
-            verts_clip, faces, tuple(image_size), settings.cull_backfaces,
-            grad_enabled, with_overflow=True, use_kernels=settings.use_kernels)
-        out.update(rast=rast, rast_db=rast_db)
-    else:
-        H, W = image_size
-        vis = visibility if settings.use_kernels else visibility_plain
-        tri_id, overflow = vis(verts_clip.detach(), faces, H, W,
-                               settings.cull_backfaces)
+    with span("render.raster"):
+        if with_attrs:
+            rast, rast_db, tri_id, overflow = rasterize(
+                verts_clip, faces, tuple(image_size), settings.cull_backfaces,
+                grad_enabled, with_overflow=True, use_kernels=settings.use_kernels)
+            out.update(rast=rast, rast_db=rast_db)
+        else:
+            H, W = image_size
+            vis = visibility if settings.use_kernels else visibility_plain
+            tri_id, overflow = vis(verts_clip.detach(), faces, H, W,
+                                   settings.cull_backfaces)
     out.update(tri_id=tri_id, overflow=overflow)
     return out
 
@@ -284,15 +286,16 @@ def render_rgba(
     tri_id = rast_dict["tri_id"]
     fg_mask = (tri_id > 0)[..., None]
 
-    packed, n_flags = face_tables(
-        rast_dict, faces, verts_uv, faces_uv, settings,
-        align_texture_face_mask, align_boundary_vert_mask,
-        fid2cid if enable_disturbance else None)
-    if settings.use_kernels:
-        ch, plane_overflow = fused_interp(packed, tri_id, n_flags)
-    else:
-        chans, plane_overflow = fused_interp_plain(packed, tri_id, n_flags)
-        ch = split_channels(chans, n_flags)
+    with span("render.interp"):
+        packed, n_flags = face_tables(
+            rast_dict, faces, verts_uv, faces_uv, settings,
+            align_texture_face_mask, align_boundary_vert_mask,
+            fid2cid if enable_disturbance else None)
+        if settings.use_kernels:
+            ch, plane_overflow = fused_interp(packed, tri_id, n_flags)
+        else:
+            chans, plane_overflow = fused_interp_plain(packed, tri_id, n_flags)
+            ch = split_channels(chans, n_flags)
     zw = ch.zw
     texc = ch.texc.permute(0, 2, 3, 1)
     texd = ch.texd.permute(0, 2, 3, 1)
@@ -307,8 +310,9 @@ def render_rgba(
         pix_mask = ((flag_planes[0] > 0.5) & fg_mask[..., 0])[..., None]
         flag_planes = flag_planes[1:]
         texc = torch.where(pix_mask, texc.detach(), texc)
-    albedo = texture_sample(tex.permute(0, 2, 3, 1), texc, texd,
-                            mask=fg_mask[..., 0], use_kernels=settings.use_kernels)
+    with span("render.texture"):
+        albedo = texture_sample(tex.permute(0, 2, 3, 1), texc, texd,
+                                mask=fg_mask[..., 0], use_kernels=settings.use_kernels)
 
     diffuse = shade(normal, settings.lighting_type, lights)
     diffuse_detach_normal = shade(normal.detach(), settings.lighting_type, lights)
@@ -332,17 +336,19 @@ def render_rgba(
     if enable_disturbance:
         cid = torch.where(fg_mask[..., 0], flag_planes[0].to(torch.int32), 0)
         out["cid"] = torch.flip(cid, dims=[1])[..., None].to(torch.float32)
-        rgba = _cluster_disturbance(
-            rgba, rgba_bg, cid, generator, settings.disturb_rate_fg,
-            settings.disturb_rate_bg, num_clusters,
-            settings.disturb_pool_stride, sample_weight=sample_weight,
-            impl="pairswap" if settings.disturb_impl == "pairswap"
-            else "sample")
+        with span("render.disturb"):
+            rgba = _cluster_disturbance(
+                rgba, rgba_bg, cid, generator, settings.disturb_rate_fg,
+                settings.disturb_rate_bg, num_clusters,
+                settings.disturb_pool_stride, sample_weight=sample_weight,
+                impl="pairswap" if settings.disturb_impl == "pairswap"
+                else "sample")
 
     # ---- antialias (render_nvdiffrast.py:463-466; boundary-detach is in
     # the AA planes of the face table already) ----
     if settings.antialias:
-        rgba_aa = antialias(rgba, tri_id, zw, vid_planes, aa_planes)
+        with span("render.antialias"):
+            rgba_aa = antialias(rgba, tri_id, zw, vid_planes, aa_planes)
     else:
         rgba_aa = rgba
     aa = torch.any(rgba != rgba_aa, dim=-1, keepdim=True).to(rgba.dtype)

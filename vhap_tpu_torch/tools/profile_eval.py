@@ -17,10 +17,11 @@ per step (sum of kernel and memory op times on the card) and idle share,
 the device ops launched per step, the peak device memory of the recorded
 steps, and the --top device ops by time per step. The profiler's own cost
 is in the wall time; the device times are the card's. For a train step it
-also reports the texture section: the device ms, device ops and top-level
-host ops of `texture_sample` inside the render (ops/render.py; run in a
-profiler range) and of the backward of every op created there (autograd's
-nodes with those sequence numbers). And it records one more step with
+turns the program's spans on (util/profiling.py) and also reports a
+section for each span of the render (RENDER_SPANS, ops/render.py): the
+device ms, device ops and top-level host ops inside it and in the
+backward of every op created there (autograd's nodes with those sequence
+numbers). And it records one more step with
 shapes and counts the zero fills (`aten::zero_`, which `aten::zeros`
 calls) and in-place adds (`aten::add_`) on any per-pixel tensor, (B, c, H,
 W) or (B, H, W, c), with their device time: among them the fused
@@ -28,21 +29,22 @@ interpolation's per-pixel outputs, whose cotangents autograd materializes
 and sums where the render slices one buffer; and the ops with a tap tensor
 (B, 4 or 8, H * W) among their inputs, which the fused sampler never forms.
 
-Its train-step reports use only names both the port's trees have, so this
-file can profile an older tree of the port: run it as a script with that
-tree first on PYTHONPATH.
+Run as a script with an older tree of the port first on PYTHONPATH, it
+profiles that tree the same way; a tree without spans reads empty render
+sections.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import subprocess
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+from vhap_tpu_torch.util import profiling
 
 
 def _eval_step():
@@ -75,58 +77,43 @@ def buffer_ops(step, B: int, H: int, W: int, events=None):
     return out
 
 
-TEXTURE_RANGE = "texture_sample"
+RENDER_SPANS = ("render.raster", "render.interp", "render.texture",
+                "render.disturb", "render.antialias")
 
 
-@contextlib.contextmanager
-def texture_range():
-    """Run the render's texture_sample (ops/render.py) inside a profiler
-    range named TEXTURE_RANGE."""
-    from vhap_tpu_torch.ops import render
-    sample = render.texture_sample
-
-    def ranged(*args, **kwargs):
-        with torch.profiler.record_function(TEXTURE_RANGE):
-            return sample(*args, **kwargs)
-
-    render.texture_sample = ranged
-    try:
-        yield
-    finally:
-        render.texture_sample = sample
-
-
-def texture_section(events, steps: int):
+def span_section(events, name: str, steps: int):
     """Per step: device ms, device ops and top-level host ops of the
-    texture section, forward (the TEXTURE_RANGE ranges) and backward
-    (autograd's evaluate_function events whose sequence number is one of an
-    op created in those ranges). Device ms sum the ops launched inside,
-    not the range's own span on the device timeline (a user annotation)."""
+    program's span `name` (util/profiling.py), forward (the ops inside its
+    ranges) and backward (autograd's evaluate_function events whose
+    sequence number is one of an op created in those ranges). Device ms
+    sum the ops launched inside, not the range's own span on the device
+    timeline (a user annotation)."""
+    from torch.autograd import DeviceType
     seqs = set()
 
-    def walk(ev, tally):
-        if ev.sequence_nr >= 0:
+    def walk(ev, tally, forward):
+        if forward and ev.sequence_nr >= 0:
             seqs.add(ev.sequence_nr)
         for k in ev.kernels:
-            if k.name != TEXTURE_RANGE:
+            if k.name != name:
                 tally["device_ms"] += k.duration / 1e3
                 tally["device_ops"] += 1
         for ch in ev.cpu_children:
-            walk(ch, tally)
+            walk(ch, tally, forward)
 
     def host_op(ev):
         return not ev.name.startswith(("cuda", "Memcpy", "Memset"))
 
     fwd = {"device_ms": 0.0, "device_ops": 0, "host_ops": 0}
     for ev in events:
-        if ev.name == TEXTURE_RANGE:
-            walk(ev, fwd)
+        if ev.name == name and ev.device_type == DeviceType.CPU:
+            walk(ev, fwd, True)
             fwd["host_ops"] += sum(map(host_op, ev.cpu_children))
     bwd = {"device_ms": 0.0, "device_ops": 0, "host_ops": 0}
     for ev in events:
         if ev.name.startswith("autograd::engine::evaluate_function:") and \
                 ev.sequence_nr in seqs:
-            walk(ev, bwd)
+            walk(ev, bwd, False)
             bwd["host_ops"] += 1
     return {k: {n: v / steps for n, v in d.items()}
             for k, d in (("forward", fwd), ("backward", bwd))}
@@ -223,16 +210,22 @@ def main() -> None:
         torch.cuda.synchronize()
 
     train = bool(args.stage and not args.vis)
-    ranges = texture_range() if train else contextlib.nullcontext()
-    with ranges:
-        for _ in range(3):
+    enable_spans = getattr(profiling, "enable_spans", None)   # an older tree has none
+    if train and enable_spans is not None:
+        enable_spans(True)
+    for _ in range(3):
+        step()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
             step()
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.steps):
-                step()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    if enable_spans is not None:
+        enable_spans(False)
+        span_names = {sp.name for sp in profiling.take_spans()}
+    else:
+        span_names = set()
     peak = torch.cuda.max_memory_allocated()
 
     rows = []
@@ -240,7 +233,7 @@ def main() -> None:
         # a profiler range shows on the device timeline as a user
         # annotation spanning its ops; it is no device op of its own
         if ev.device_type != torch.autograd.DeviceType.CUDA or \
-                ev.key == TEXTURE_RANGE or getattr(ev, "is_user_annotation", False):
+                ev.key in span_names or getattr(ev, "is_user_annotation", False):
             continue
         ms = ev.self_device_time_total / 1e3 / args.steps
         rows.append({"name": ev.key[:120], "calls_per_step": ev.count / args.steps,
@@ -252,7 +245,9 @@ def main() -> None:
         r["share"] = r["ms_per_step"] / busy if busy else None
     extra = {}
     if train:
-        extra["texture_section_per_step"] = texture_section(prof.events(), args.steps)
+        events = prof.events()
+        extra["render_sections_per_step"] = {
+            name: span_section(events, name, args.steps) for name in RENDER_SPANS}
         events = shaped_events(step)
         extra["pixel_buffer_ops_per_step"] = buffer_ops(step, batch, H, W, events)
         extra["tap_tensor_ops_per_step"] = tap_tensor_ops(events, batch, H * W)

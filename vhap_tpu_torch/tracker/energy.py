@@ -49,6 +49,7 @@ from vhap_tpu_torch.ops.render import RenderSettings, rasterize_mesh, render_rgb
 from vhap_tpu_torch.ops.shading import uniform_sh_lights
 from vhap_tpu_torch.parallel import sharding
 from vhap_tpu_torch.tracker import params as P
+from vhap_tpu_torch.util.profiling import span
 
 
 def normalize_image_points(u, v, resolution):
@@ -468,19 +469,20 @@ def make_energy_fn(
 
         sliced = P.slice_batch(params, ts)
         B = ts.shape[0]
-        verts, verts_cano, lmks = head(
-            shape=params["shape"][None].expand(B, -1),
-            expr=sliced["expr"],
-            rotation=sliced["rotation"],
-            neck=sliced["neck_pose"],
-            jaw=sliced["jaw_pose"],
-            eyes=sliced["eyes_pose"],
-            translation=sliced["translation"],
-            return_verts_cano=True,
-            static_offset=params.get("static_offset"),
-            dynamic_offset=sliced.get("dynamic_offset"),
-        )
-        albedo = get_albedo(params)
+        with span("flame"):
+            verts, verts_cano, lmks = head(
+                shape=params["shape"][None].expand(B, -1),
+                expr=sliced["expr"],
+                rotation=sliced["rotation"],
+                neck=sliced["neck_pose"],
+                jaw=sliced["jaw_pose"],
+                eyes=sliced["eyes_pose"],
+                translation=sliced["translation"],
+                return_verts_cano=True,
+                static_offset=params.get("static_offset"),
+                dynamic_offset=sliced.get("dynamic_offset"),
+            )
+            albedo = get_albedo(params)
 
         K, RT = fill_cam_params(batch, params, calibrated, image_size)
 
@@ -493,21 +495,22 @@ def make_energy_fn(
 
         render_out = None
         if enable_photo:
-            rast_dict = rasterize_mesh(verts, head.faces, RT, K, image_size,
-                                       settings, with_attrs=False)
             if background == "target":
                 bg = batch["rgb"]  # top-down; renderer flips to buffer space
             elif background == "white":
                 bg = (1.0, 1.0, 1.0)
             else:
                 bg = (0.0, 0.0, 0.0)
-            render_out = render_rgba(
-                rast_dict, head.faces, verts_uv, head.textures_idx, albedo,
-                params["lights"][None] if "lights" in params else None,
-                settings, bg, tex_mask, bnd_mask,
-                enable_disturbance=enable_disturbance, fid2cid=fid2cid,
-                num_clusters=num_clusters, generator=generator,
-                sample_weight=batch["weight"])
+            with span("render"):
+                rast_dict = rasterize_mesh(verts, head.faces, RT, K, image_size,
+                                           settings, with_attrs=False)
+                render_out = render_rgba(
+                    rast_dict, head.faces, verts_uv, head.textures_idx, albedo,
+                    params["lights"][None] if "lights" in params else None,
+                    settings, bg, tex_mask, bnd_mask,
+                    enable_disturbance=enable_disturbance, fid2cid=fid2cid,
+                    num_clusters=num_clusters, generator=generator,
+                    sample_weight=batch["weight"])
             e_photo, photo_aux = photometric_energy(batch, render_out)
             log["photo"] = cfg.w.photo * e_photo
             aux.update(photo_aux)

@@ -16,6 +16,7 @@ import torch
 from vhap_tpu_torch.config.base import BaseTrackingConfig
 from vhap_tpu_torch.parallel import sharding
 from vhap_tpu_torch.tracker import params as P
+from vhap_tpu_torch.util.profiling import span
 
 BETA1, BETA2, EPS = 0.9, 0.999, 1e-8   # torch.optim.Adam's defaults
 
@@ -82,11 +83,13 @@ def loss_and_grads(energy_fn: Callable, params: P.Params,
     opt_keys = sorted(opt_leaves)
     opt_params = {k: params[k].detach().requires_grad_(True) for k in opt_keys}
     frozen = {k: v for k, v in params.items() if k not in opt_leaves}
-    E, (log, _aux) = energy_fn({**frozen, **opt_params}, batch, generator)
-    grads = torch.autograd.grad(E, [opt_params[k] for k in opt_keys],
-                                allow_unused=True)
-    grads = {k: torch.zeros_like(opt_params[k]) if g is None else g
-             for k, g in zip(opt_keys, grads)}
+    with span("step.forward"):
+        E, (log, _aux) = energy_fn({**frozen, **opt_params}, batch, generator)
+    with span("step.backward"):
+        grads = torch.autograd.grad(E, [opt_params[k] for k in opt_keys],
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(opt_params[k]) if g is None else g
+                 for k, g in zip(opt_keys, grads)}
     log = {k: v.detach() for k, v in log.items()}
     return E.detach(), log, sharding.all_reduce_grads(grads)
 
@@ -123,7 +126,9 @@ def make_train_step(
     package's optax.scale_by_adam + lr map step for step:
     p <- p - lr_map[k] * lr_scale * lr_factor * update. The step returns a
     new params dict: optimizable leaves are new tensors, frozen leaves are
-    the caller's tensors, untouched.
+    the caller's tensors, untouched. With spans on (util/profiling.py) a
+    step is the span `step`, holding `step.forward` (the energy),
+    `step.backward` (its gradients) and `step.adam`.
     """
     def init_opt_state(params: P.Params) -> Dict:
         keys = sorted(opt_leaves)
@@ -133,12 +138,13 @@ def make_train_step(
 
     def step(params: P.Params, opt_state: Dict, batch: Dict,
              generator: torch.Generator, lr_factor: float = 1.0):
-        E, log, grads = loss_and_grads(energy_fn, params, opt_leaves, batch,
-                                       generator)
-        with torch.no_grad():
-            updates, opt_state = adam_update(grads, opt_state)
-            new = {k: params[k] + (-lr_map[k] * lr_scale) * lr_factor * updates[k]
-                   for k in updates}
+        with span("step"):
+            E, log, grads = loss_and_grads(energy_fn, params, opt_leaves, batch,
+                                           generator)
+            with span("step.adam"), torch.no_grad():
+                updates, opt_state = adam_update(grads, opt_state)
+                new = {k: params[k] + (-lr_map[k] * lr_scale) * lr_factor * updates[k]
+                       for k in updates}
         return {**params, **new}, opt_state, E, log
 
     return init_opt_state, step

@@ -20,7 +20,11 @@ On the device:
     to the host are queued behind the work that produces them and waited
     on one chunk later, or on the media thread;
   * the cluster disturbance draws from one torch.Generator on the device,
-    seeded 0, saved with the run state.
+    seeded 0, saved with the run state;
+  * with spans on (util/profiling.py), the main thread's batch waits,
+    copies to the card, warm starts, checkpoints and logs are the spans
+    loop.batch_wait, loop.h2d, loop.warm_start, loop.checkpoint and
+    loop.log, beside the step's own.
 
 Calibrated multiview data (`data.calibrated=True`, NeRSemble) batches all
 views of one timestep per step, with the dataset's cameras (the focal
@@ -71,7 +75,7 @@ from vhap_tpu_torch.tracker.energy import make_albedo_fn, make_energy_fn
 from vhap_tpu_torch.tracker.optim import (leaf_learning_rates, make_train_step,
                                           stage_optimizable_leaves)
 from vhap_tpu_torch.util.log import get_logger
-from vhap_tpu_torch.util.profiling import StepTimer
+from vhap_tpu_torch.util.profiling import StepTimer, span
 
 # what the media grid and mesh dump read from the evaluation aux
 _MEDIA_VIEW_KEYS = ("gt_rgb", "pred_rgb", "error_rgb", "cid", "albedo",
@@ -377,7 +381,8 @@ class GlobalTracker:
         return batch
 
     def _to_device(self, host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+        with span("loop.h2d"):
+            return {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
 
     def _make_batch(self, indices: List[int]) -> Dict[str, torch.Tensor]:
         """Collate frame indices into a padded device batch."""
@@ -408,7 +413,8 @@ class GlobalTracker:
 
         threading.Thread(target=worker, daemon=True).start()
         while True:
-            item = q.get()
+            with span("loop.batch_wait"):
+                item = q.get()
             if item is stop:
                 return
             if isinstance(item, BaseException):
@@ -463,25 +469,26 @@ class GlobalTracker:
         self.global_step += 1
         self.steps_by_stage[stage] += 1
         self.step_timer.tick(stage)
-        interval = self.cfg.log.interval_scalar or 100
-        if self.global_step % interval == 0:
-            vals = self._read_log(log)                       # the one sync
-            if not np.isfinite(vals["total"]):
-                self.logger.error(
-                    f"[train-{stage}] step {self.global_step}: non-finite "
-                    f"energy {[k for k, v in vals.items() if not np.isfinite(v)]}"
-                    " — parameters are likely diverging")
-            timestep = int(batch["timestep_index"][0])
-            sps = self.step_timer.steps_per_sec
-            msg = "  ".join(f"{k}: {v:.4f}" for k, v in vals.items())
-            self.logger.info(f"[train-{stage}] timestep {timestep} "
-                             f"step {self.global_step} ({sps:.2f} it/s):  {msg}")
-            for k, v in vals.items():
-                self.writer.add_scalar(f"train/{k}", v, self.global_step)
-            self.writer.add_scalar("perf/steps_per_sec", sps, self.global_step)
-        media_interval = self.cfg.log.interval_media or 500
-        if self.global_step % media_interval == 0:
-            self._log_media(batch, stage=stage)
+        with span("loop.log"):
+            interval = self.cfg.log.interval_scalar or 100
+            if self.global_step % interval == 0:
+                vals = self._read_log(log)                       # the one sync
+                if not np.isfinite(vals["total"]):
+                    self.logger.error(
+                        f"[train-{stage}] step {self.global_step}: non-finite "
+                        f"energy {[k for k, v in vals.items() if not np.isfinite(v)]}"
+                        " — parameters are likely diverging")
+                timestep = int(batch["timestep_index"][0])
+                sps = self.step_timer.steps_per_sec
+                msg = "  ".join(f"{k}: {v:.4f}" for k, v in vals.items())
+                self.logger.info(f"[train-{stage}] timestep {timestep} "
+                                 f"step {self.global_step} ({sps:.2f} it/s):  {msg}")
+                for k, v in vals.items():
+                    self.writer.add_scalar(f"train/{k}", v, self.global_step)
+                self.writer.add_scalar("perf/steps_per_sec", sps, self.global_step)
+            media_interval = self.cfg.log.interval_media or 500
+            if self.global_step % media_interval == 0:
+                self._log_media(batch, stage=stage)
 
     @staticmethod
     def _read_log(log: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -499,21 +506,22 @@ class GlobalTracker:
         """Resumable snapshot: params + schedule cursor + generator state
         (a uint8 array under `key`; under a process group every rank's, one
         row each). Rank 0 writes it."""
-        key = self.generator.get_state()
-        if self.world > 1:
-            key = sharding.all_gather_rows(key.to(torch.int32)[None]).to(torch.uint8)
-        if not self.lead:
-            return
-        state = {f"param/{k}": v.detach().cpu().numpy()
-                 for k, v in self.params.items()}
-        state.update({
-            "phase": np.asarray(phase),
-            "cursor": np.asarray(cursor),
-            "epoch": np.asarray(epoch),
-            "global_step": np.asarray(self.global_step),
-            "key": key.numpy(),
-        })
-        np.savez(self.out_dir / "run_state.npz", **state)
+        with span("loop.checkpoint"):
+            key = self.generator.get_state()
+            if self.world > 1:
+                key = sharding.all_gather_rows(key.to(torch.int32)[None]).to(torch.uint8)
+            if not self.lead:
+                return
+            state = {f"param/{k}": v.detach().cpu().numpy()
+                     for k, v in self.params.items()}
+            state.update({
+                "phase": np.asarray(phase),
+                "cursor": np.asarray(cursor),
+                "epoch": np.asarray(epoch),
+                "global_step": np.asarray(self.global_step),
+                "key": key.numpy(),
+            })
+            np.savez(self.out_dir / "run_state.npz", **state)
 
     def load_run_state(self, path) -> Dict:
         with np.load(path, allow_pickle=True) as z:
@@ -601,14 +609,15 @@ class GlobalTracker:
 
     def _initialize_next_timestep(self, ts: np.ndarray, w: np.ndarray):
         """Warm-start the following frames (vhap/model/tracker.py:1515-1529)."""
-        real = ts[w > 0]
-        stride = int(real[-1]) - int(real[0]) + 1
-        t_src = int(real[-1])
-        targets = [t for t in range(t_src + 1, t_src + 1 + stride)
-                   if t < self.n_timesteps - 1]
-        if targets:
-            self.params = P.copy_forward(self.params, t_src, targets)
-        self.timestep = t_src + 1
+        with span("loop.warm_start"):
+            real = ts[w > 0]
+            stride = int(real[-1]) - int(real[0]) + 1
+            t_src = int(real[-1])
+            targets = [t for t in range(t_src + 1, t_src + 1 + stride)
+                       if t < self.n_timesteps - 1]
+            if targets:
+                self.params = P.copy_forward(self.params, t_src, targets)
+            self.timestep = t_src + 1
 
     # ------------------------------------------------------------------
     # evaluation + checkpoints (vhap/model/tracker.py:1078-1117)

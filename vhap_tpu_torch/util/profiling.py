@@ -1,32 +1,111 @@
-"""Lightweight step timing + optional device tracing.
+"""Step timing and layer spans.
 
 Counterpart of vhap_tpu/util/profiling.py:
-  * StepTimer: rolling steps/sec + per-stage wall-time accounting and the
-    per-step wall times of each stage (for medians), surfaced in the
-    tracker's scalar logs,
-  * `device_trace(...)`: context manager around torch.profiler, writing a
-    Chrome/Perfetto trace of the host and CUDA activity inside it.
+  * StepTimer: rolling steps/sec and the per-step wall times of each stage
+    (for medians), surfaced in the tracker's scalar logs;
+  * span(name): a named host interval around one layer of the loop (the
+    step and its forward, backward and Adam, FLAME, the render and its
+    parts, the loop's batch wait, copy, checkpoint, warm start and logs).
+
+Spans are off by default, and then `span` costs one check of a module flag
+and returns a shared null context. `enable_spans(True)` turns them on for
+the calling thread (the thread that launches the step's work; a span opened
+on another thread is the null context); each span then records
+(name, start, end, parent) on `time.perf_counter()`, the clock of StepTimer,
+into a bounded buffer that `take_spans()` empties. While torch.profiler
+records, each span also enters `torch.profiler.record_function(name)`, so
+it shows among the profiler's events as a user annotation around the ops
+it launched, on the clock of the device activity.
 """
 
 from __future__ import annotations
 
 import contextlib
 import statistics
+import threading
 import time
-from collections import defaultdict
-from pathlib import Path
-from typing import Dict, List, Optional
+from collections import defaultdict, deque
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
+
+SPAN_CAPACITY = 1 << 16      # records kept; the oldest go first
+
+_on = False
+_thread: Optional[int] = None
+_NULL = contextlib.nullcontext()
+_records: deque = deque(maxlen=SPAN_CAPACITY)
+_open: List[int] = []        # numbers of the open spans, innermost last
+_opened = 0                  # spans opened so far (their numbers)
+
+
+class Span(NamedTuple):
+    name: str
+    start: float
+    end: float
+    parent: int              # index of the enclosing span in the list, or -1
+
+
+class _Span:
+    __slots__ = ("name", "n", "parent", "start", "ranged")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _opened
+        self.n, _opened = _opened, _opened + 1
+        self.parent = _open[-1] if _open else -1
+        _open.append(self.n)
+        self.ranged = None
+        if torch.autograd._profiler_enabled():
+            self.ranged = torch.profiler.record_function(self.name)
+            self.ranged.__enter__()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter()
+        if self.ranged is not None:
+            self.ranged.__exit__(*exc)
+        _open.pop()
+        _records.append((self.n, self.name, self.start, end, self.parent))
+        return False
+
+
+def span(name: str):
+    """Context manager timing one layer of the loop (module docstring)."""
+    if not _on or threading.get_ident() != _thread:
+        return _NULL
+    return _Span(name)
+
+
+def enable_spans(on: bool = True) -> None:
+    """Turn spans on (for the calling thread) or off. Records are kept."""
+    global _on, _thread
+    _thread = threading.get_ident() if on else None
+    _on = bool(on)
+
+
+def take_spans() -> List[Span]:
+    """The closed spans recorded since the last call, in the order they
+    were opened, and clears them. A parent index points into the returned
+    list; -1 for a top-level span, or one whose parent is still open or
+    was dropped from the full buffer."""
+    recs = sorted(_records)
+    _records.clear()
+    index = {r[0]: i for i, r in enumerate(recs)}
+    return [Span(name, start, end, index.get(parent, -1))
+            for _, name, start, end, parent in recs]
 
 
 class StepTimer:
-    """Rolling throughput and cumulative per-stage wall time."""
+    """Rolling throughput and the per-step wall times of each stage."""
 
     def __init__(self, window: int = 50):
         self.window = window
         self._last: Optional[float] = None
         self._deltas = []
-        self.stage_seconds: Dict[str, float] = defaultdict(float)
-        self.stage_steps: Dict[str, int] = defaultdict(int)
         self.stage_deltas: Dict[str, List[float]] = defaultdict(list)
 
     def tick(self, stage: str = "") -> None:
@@ -36,8 +115,6 @@ class StepTimer:
             self._deltas.append(dt)
             if len(self._deltas) > self.window:
                 self._deltas.pop(0)
-            self.stage_seconds[stage] += dt
-            self.stage_steps[stage] += 1
             self.stage_deltas[stage].append(dt)
         self._last = now
 
@@ -56,24 +133,3 @@ class StepTimer:
         step after each reset_clock is not timed)."""
         d = self.stage_deltas.get(stage)
         return statistics.median(d) * 1e3 if d else None
-
-    def summary(self) -> Dict[str, float]:
-        out = {"steps_per_sec": round(self.steps_per_sec, 3)}
-        for k in self.stage_seconds:
-            out[f"seconds/{k}"] = round(self.stage_seconds[k], 2)
-        return out
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """Capture a host + CUDA trace (Chrome trace JSON, viewable in Perfetto)
-    of the block into log_dir/trace.json."""
-    import torch
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    out = Path(log_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(str(out / "trace.json"))
