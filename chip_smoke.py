@@ -521,15 +521,45 @@ def capture_sampler(keep_last: bool = False):
     {"fwd": [(flat1, uv, uv_da, mask, offsets, sizes)], "bwd": [(flat1, uv,
     uv_da, mask, offsets, sizes, g)]} (K3 through trilinear_sample, K4
     through ops/texture_fetch._launch_bwd); the wrappers still launch.
-    keep_last keeps only the newest of each."""
+    keep_last keeps only the newest of each. A K4 launch recorded into a
+    CUDA graph goes to "graph_bwd" as (graph, arguments), the tensors cloned
+    inside the graph: a replay calls no wrapper, but rewrites the clones
+    with its own launch's arguments (keep_last keeps those of the last two
+    graphs captured, one step's pair); replayed_launch() picks the graph
+    that replayed last, whose clones no later replay has overwritten (a
+    graph's clones may lie in pool memory the other graph's replay reuses).
+    K4's arguments hold K3's; K3 launches recorded into a graph are left
+    out."""
     from vhap_tpu_torch.ops import texture_fetch as tf
-    captured = {"fwd": [], "bwd": []}
+    captured = {"fwd": [], "bwd": [], "graph_bwd": [], "replayed": None}
     sampler, launch_bwd = tf._TrilinearSample, tf._launch_bwd
+    Graph = torch.cuda.CUDAGraph
+    begin, replay = Graph.capture_begin, Graph.replay
+    capturing, order = [None], []
 
     def record(kind, args):
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            if kind == "bwd":
+                args = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args)
+                captured["graph_bwd"].append((capturing[0], args))
+            return
         if keep_last:
             captured[kind].clear()
         captured[kind].append(args)
+
+    def capture_begin(graph, *args, **kwargs):
+        capturing[0] = graph
+        order.append(graph)
+        if keep_last:
+            del order[:-2]
+            captured["graph_bwd"][:] = [r for r in captured["graph_bwd"]
+                                        if any(r[0] is g for g in order)]
+        return begin(graph, *args, **kwargs)
+
+    def replaying(graph, *args, **kwargs):
+        captured["replayed"] = id(graph)
+        return replay(graph, *args, **kwargs)
 
     class Recording:
         @staticmethod
@@ -542,10 +572,19 @@ def capture_sampler(keep_last: bool = False):
         return launch_bwd(*args)
 
     tf._TrilinearSample, tf._launch_bwd = Recording, recording_bwd
+    Graph.capture_begin, Graph.replay = capture_begin, replaying
     try:
         yield captured
     finally:
         tf._TrilinearSample, tf._launch_bwd = sampler, launch_bwd
+        Graph.capture_begin, Graph.replay = begin, replay
+
+
+def replayed_launch(captured):
+    """The arguments of the K4 launch of capture_sampler's graph that
+    replayed last, as its last replay wrote them (None if it holds none)."""
+    return next((args for graph, args in captured["graph_bwd"]
+                 if id(graph) == captured["replayed"]), None)
 
 
 def check_sampler(where, args, g=None, seed=3, focus=None):
@@ -693,6 +732,16 @@ def check_sampler(where, args, g=None, seed=3, focus=None):
              f"alone (all {B * 8 * P} taps, wgt * g formed before the timed "
              f"region)")
     return k3, k4
+
+
+def check_replayed_sampler(where, captured):
+    """K3 and K4 against their plain versions at the K4 launch of the last
+    CUDA graph replay (capture_sampler), K4 with the replay's own
+    cotangent; fails if the last replay's graph holds no sampled launch."""
+    args = replayed_launch(captured)
+    if args is None:
+        raise RuntimeError(f"{where}: the last CUDA graph replay launched no sampled K4")
+    check_sampler(f"{where}'s last graph replay", args[:6], g=args[6])
 
 
 def check_sampler_launches(where, captured, n_fwd, n_bwd, focus=None):
@@ -1522,7 +1571,8 @@ def check_tracker_loop(kernels, single_step_ms):
                 raise RuntimeError(f"{name} launched {launches[name]} times in the "
                                    f"tracker loop, expected {n}")
         args = sampled["bwd"][0]
-        check_sampler("the tracker loop's last rgb step", args[:6], g=args[6])
+        check_sampler("the tracker loop's last eager rgb step", args[:6], g=args[6])
+        check_replayed_sampler("the tracker loop", sampled)
         del sampled, args
         if not (np.isfinite(E1) and E1 < E0):
             raise RuntimeError(f"batch-0 eval energy did not fall: {E0} -> {E1}")
@@ -1750,7 +1800,8 @@ def check_track_nersemble(root, kernels):
             raise RuntimeError(f"{name} launched {launches[name]} times in "
                                f"track_nersemble, expected {n}")
     args = sampled["bwd"][0]
-    check_sampler("track_nersemble's last rgb step", args[:6], g=args[6])
+    check_sampler("track_nersemble's last eager rgb step", args[:6], g=args[6])
+    check_replayed_sampler("track_nersemble", sampled)
     del sampled, args
     ckpt = sorted(out_dir.glob("tracked_flame_params_*.npz"))[-1]
     z = dict(np.load(ckpt))

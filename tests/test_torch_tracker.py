@@ -472,6 +472,18 @@ def test_spans_nest_by_layer(span_runs):
             assert p.start <= s.start and s.end <= p.end
 
 
+def test_step_graph_stays_eager_on_cpu(span_runs):
+    """On the CPU the tracker's step never captures a CUDA graph: every
+    step of every stage runs eager and summary()["step_graph"] counts it
+    so (tracker/step_graph.py)."""
+    runs, _ = span_runs
+    for name in ("off", "on"):
+        tr, _ = runs[name]
+        assert tr.global_step == 8
+        assert tr.summary()["step_graph"] == {"captures": 0, "replays": 0, "eager": 8}
+        assert tr._step_graphs.live is None
+
+
 def test_spans_off_record_nothing(span_runs):
     """With spans off nothing is recorded and record_function is never
     entered; the parameters come out bit-identical to the run with spans

@@ -494,3 +494,17 @@ def test_npz_round_trip_matches(tmp_path, writer):
         np.testing.assert_array_equal(got[k].numpy(), ref[k], err_msg=k)
     np.testing.assert_array_equal(got["rotation"].numpy(), p["rotation"])
     np.testing.assert_array_equal(got["expr"].numpy()[:6], p["expr"])
+
+
+@pytest.mark.parametrize("lr_scale", [1.0, 0.1])
+def test_graphed_adam_equals_eager_adam(lr_scale):
+    """make_train_step's Adam reads nothing from the host (the count on the
+    device, the bias corrections read by it from optim.bias_corrections,
+    each leaf's lr a float32 device scalar), so a CUDA graph can capture
+    it, and equals the same step on host scalars bit for bit over counts
+    1-3,000 and across the table's end, lr factors float32(0.9 ** e), e =
+    0-39, at the sequential (1) and global (0.1) lr scales
+    (tests/torch_adam_cases.py; on the card in
+    tests/test_torch_kernels_cuda.py)."""
+    from torch_adam_cases import check_adam_on_device
+    check_adam_on_device("cpu", lr_scale)

@@ -28,6 +28,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from vhap_tpu_torch.device import constant
 from vhap_tpu_torch.ops.plane_gather import plane_gather, plane_gather_plain
 from vhap_tpu_torch.ops.rasterize import face_attribute_planes, pixel_grid
 
@@ -51,7 +52,8 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """jnp.clip with its derivative: at either bound half the gradient
     passes (torch.clamp passes all of it). An edge through a pixel pair's
     midpoint puts t exactly on a bound."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, constant(lo, x.dtype, x.device)),
+                         constant(hi, x.dtype, x.device))
 
 
 def _pair_weights(tri_id_p, tri_id_q, zw_p, zw_q, pl_p, pl_q,

@@ -12,6 +12,8 @@ from typing import Tuple
 
 import torch
 
+from vhap_tpu_torch.device import constant
+
 
 def projection_from_intrinsics(K: torch.Tensor, image_size: Tuple[int, int],
                                near: float = 0.1, far: float = 10.0) -> torch.Tensor:
@@ -72,6 +74,5 @@ def world_to_ndc(vtx: torch.Tensor, RT: torch.Tensor, K: torch.Tensor, image_siz
     clip = world_to_clip(vtx, RT, K, image_size)
     ndc = clip[..., :3] / clip[..., 3:]
     if flip_y:
-        ndc = ndc * torch.tensor([1.0, -1.0, 1.0], dtype=ndc.dtype,
-                                 device=ndc.device)
+        ndc = ndc * constant((1.0, -1.0, 1.0), ndc.dtype, ndc.device)
     return ndc

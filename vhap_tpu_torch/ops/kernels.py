@@ -11,7 +11,9 @@ Each C entry point launches on the stream it is given, allocates nothing
 and returns the CUDA error code of its launches (0 = success). `Kernel`
 wraps one entry point: it passes PyTorch's current stream, raises on a
 nonzero code and counts its launches, so a run can show that its path went
-through the kernel.
+through the kernel. A replayed CUDA graph calls no entry point; the graphed
+train step (tracker/step_graph.py) adds the launches it recorded at capture
+to these counts on every replay.
 """
 
 from __future__ import annotations
@@ -131,13 +133,17 @@ def library() -> ctypes.CDLL:
 
 
 class Kernel:
-    """One C entry point of the kernel library, with its launch count."""
+    """One C entry point of the kernel library, with its launch count.
+    `Kernel.made` lists every entry point wrapped so far."""
+
+    made: List["Kernel"] = []
 
     def __init__(self, name: str, symbol: str, argtypes: Sequence):
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes) + [c_ptr]   # + the stream
         self.launches = 0
+        Kernel.made.append(self)
 
     def __call__(self, *args) -> None:
         lib = library()

@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from vhap_tpu_torch.device import constant
 from vhap_tpu_torch.ops.kernels import Kernel, c_float, c_int, c_ptr, \
     check_cuda_tensor, library
 from vhap_tpu_torch.ops.plane_gather import plane_gather, plane_gather_plain
@@ -144,8 +145,7 @@ def face_setup(verts_clip: torch.Tensor, faces: torch.Tensor,
     orient_h = det > AREA_EPS if cull_backfaces else torch.abs(det) > AREA_EPS
     abc = torch.where(straddle[..., None, None], abc_h, abc)
     zpln = torch.where(straddle[..., None], zpln_h, zpln)
-    full = torch.tensor([-1.0, -1.0, 1.0, 1.0], dtype=bbox.dtype,
-                        device=bbox.device)
+    full = constant((-1.0, -1.0, 1.0, 1.0), bbox.dtype, bbox.device)
     bbox = torch.where(straddle[..., None], full, bbox)
     valid = valid | (straddle & orient_h)
     wsign = torch.where(straddle[..., None] & (w <= 0), -1.0, 1.0).to(w.dtype)

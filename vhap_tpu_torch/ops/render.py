@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from vhap_tpu_torch.device import constant
 from vhap_tpu_torch.ops import camera as cam
 from vhap_tpu_torch.ops.antialias import AA_PLANE_KEYS, antialias, antialias_rast
 from vhap_tpu_torch.ops.interp import (fused_interp, fused_interp_plain,
@@ -323,8 +324,8 @@ def render_rgba(
 
     # ---- background (render_nvdiffrast.py:409-421) ----
     if isinstance(background_color, (list, tuple)):
-        rgba_bg = torch.tensor(list(background_color) + [0.0], dtype=rgba.dtype,
-                               device=rgba.device).expand(rgba.shape)
+        rgba_bg = constant(tuple(background_color) + (0.0,), rgba.dtype,
+                           rgba.device).expand(rgba.shape)
     else:
         bg = background_color.to(rgba.dtype)
         rgba_bg = torch.cat([bg, torch.zeros_like(bg[..., :1])], dim=-1)
@@ -451,8 +452,8 @@ def render_rgba_vis(
     alpha = fg_mask.to(rgb.dtype)
     rgba = torch.cat([rgb, alpha], dim=-1)
 
-    rgba_bg = torch.tensor(list(background_color) + [0.0], dtype=rgba.dtype,
-                           device=rgba.device).expand(rgba.shape)
+    rgba_bg = constant(tuple(background_color) + (0.0,), rgba.dtype,
+                       rgba.device).expand(rgba.shape)
     normal = torch.where(fg_mask, normal, rgba_bg[..., :3])
     diffuse_out = torch.where(fg_mask, diffuse, rgba_bg[..., :3])
     rgba = torch.where(fg_mask, rgba, rgba_bg)

@@ -11,6 +11,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vhap_tpu_torch.device import constant
+
 
 def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.sum(x * y, dim=-1, keepdim=True)
@@ -44,8 +46,7 @@ def compute_v_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
     all_idx = torch.cat([faces[:, 0], faces[:, 1], faces[:, 2]])
     fn3 = torch.cat([fn, fn, fn], dim=1)
     vn = torch.zeros_like(verts).index_add(1, all_idx, fn3)
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=verts.dtype,
-                            device=verts.device)
+    fallback = constant((0.0, 0.0, 1.0), verts.dtype, verts.device)
     vn = torch.where(dot(vn, vn) > 1e-20, vn, fallback)
     return safe_normalize(vn)
 
@@ -78,7 +79,7 @@ def sh_shading(normals: torch.Tensor, sh_coefficients: torch.Tensor) -> torch.Te
         N[..., 0] * N[..., 1], N[..., 0] * N[..., 2], N[..., 1] * N[..., 2],
         N[..., 0] ** 2 - N[..., 1] ** 2,
         3 * (N[..., 2] ** 2) - 1,
-    ], dim=-1) * torch.as_tensor(SH_CONST, device=N.device)
+    ], dim=-1) * constant(SH_CONST.tolist(), torch.float32, N.device)
     # broadcast shared lights to the pixel batch explicitly, one light set
     # per batch element
     if sh_coefficients.shape[0] == 1 and sh.shape[0] != 1:

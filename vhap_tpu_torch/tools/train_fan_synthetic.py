@@ -270,17 +270,21 @@ def cosine_decay(lr: float, steps: int, alpha: float = 0.1) -> Callable[[int], f
 class Adam:
     """optax.adam on named parameters: tracker/optim.adam_update's
     bias-corrected direction times -lr(count), the schedule read at the
-    count before the step, added to each parameter in place."""
+    count before the step (counted on the host too), added to each
+    parameter in place."""
 
     def __init__(self, params: Dict[str, torch.Tensor],
                  lr: Callable[[int], float]):
         self.params, self.lr = params, lr
-        self.state = {"count": 0,
+        self.count = 0
+        dev = next(iter(params.values())).device
+        self.state = {"count": torch.zeros((), dtype=torch.int64, device=dev),
                       "mu": {k: torch.zeros_like(v) for k, v in params.items()},
                       "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
 
     def step(self, grads: Dict[str, torch.Tensor]) -> None:
-        step_size = -self.lr(self.state["count"])
+        step_size = -self.lr(self.count)
+        self.count += 1
         updates, self.state = adam_update(grads, self.state)
         with torch.no_grad():
             for k, u in updates.items():

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from vhap_tpu_torch.config.base import BaseTrackingConfig, PhotometricStageConfig
-from vhap_tpu_torch.device import resolve_device
+from vhap_tpu_torch.device import constant, resolve_device
 from vhap_tpu_torch.model.flame import (FlameHead, laplacian_apply,
                                         laplacian_blur_apply)
 from vhap_tpu_torch.model.lbs import batch_rodrigues
@@ -87,8 +87,8 @@ def fill_cam_params(batch: Dict, params: P.Params, calibrated: bool,
     f = (params["focal_length"] * max(h, w)).expand(B)
     K = torch.stack([f, f, torch.full_like(f, 0.5 * w),
                      torch.full_like(f, 0.5 * h)], dim=1)
-    RT = torch.eye(3, 4, dtype=f.dtype, device=f.device)
-    RT[2, 3] = -1.0
+    RT = constant(((1.0, 0.0, 0.0, 0.0), (0.0, 1.0, 0.0, 0.0),
+                   (0.0, 0.0, 1.0, -1.0)), f.dtype, f.device)
     return K, RT.expand(B, 3, 4)
 
 
@@ -271,7 +271,8 @@ def regularization_energy(
 
     if opt["lights"] and "lights" in params:
         if w_cfg.reg_light is not None:
-            sh0 = torch.as_tensor(uniform_sh_lights(), device=params["lights"].device)
+            sh0 = constant(uniform_sh_lights().tolist(), torch.float32,
+                           params["lights"].device)
             log["reg_light"] = once(lambda: w_cfg.reg_light * torch.mean(
                 (params["lights"] - sh0) ** 2))
         if w_cfg.reg_diffuse is not None and render_out is not None:
@@ -526,9 +527,9 @@ def make_energy_fn(
         log["total"] = E_total
         if enable_photo:
             # monitor only (after the total): the port rasterizes exactly,
-            # with no bin budget, so this stays 0
-            log["rast_overflow"] = torch.tensor(
-                float(rast_dict["overflow"] + render_out["plane_overflow"]),
+            # with no bin budget, so this stays 0 (host ints; a fill, no copy)
+            log["rast_overflow"] = torch.full(
+                (), float(rast_dict["overflow"] + render_out["plane_overflow"]),
                 device=dev)
         if with_aux:
             aux.update({"verts": verts, "lmks": lmks, "albedo_map": albedo})

@@ -8,7 +8,8 @@ the global stage is the step's `lr_factor` argument.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, FrozenSet, Tuple
+import functools
+from typing import Callable, Dict, FrozenSet, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,20 +95,50 @@ def loss_and_grads(energy_fn: Callable, params: P.Params,
     return E.detach(), log, sharding.all_reduce_grads(grads)
 
 
-def adam_update(grads: Dict[str, torch.Tensor], state: Dict):
+@functools.lru_cache(maxsize=None)
+def bias_corrections(device) -> torch.Tensor:
+    """(n, 2) float32 on `device`, built once per device: row c holds Adam's
+    bias corrections (1 - BETA1**c, 1 - BETA2**c) at count c, formed in
+    float32 as optax forms them (1 - 0.999 in float32 is 1.3e-5 off its
+    exact value, which moves the first steps' update by 6e-6 relative), in
+    the form in which the device divides a tensor by a host scalar: CUDA
+    multiplies by the scalar's float32 reciprocal, so there the rows hold
+    the reciprocals (count 0's, never read, is inf); the CPU divides. The
+    step then gives the bits of one that divides by the corrections as
+    Python floats, as the plain version does. The rows end where both
+    reach 1, which they keep at every larger count."""
+    one, b1, b2 = np.float32(1.0), np.float32(BETA1), np.float32(BETA2)
+    rows, count = [], 0
+    while not rows or rows[-1] != (one, one):
+        rows.append((one - b1 ** np.float32(count), one - b2 ** np.float32(count)))
+        count += 1
+    table = np.asarray(rows, np.float32)
+    if torch.device(device).type == "cuda":
+        with np.errstate(divide="ignore"):
+            table = one / table
+    return torch.tensor(table, device=device)
+
+
+def adam_update(grads: Dict[str, torch.Tensor], state: Dict, out: Optional[Dict] = None):
     """One bias-corrected Adam direction per leaf (optax.scale_by_adam,
     betas (0.9, 0.999), eps 1e-8, eps_root 0) -> (updates, new state).
-    The bias corrections 1 - beta**count are formed in float32, as optax
-    forms them (1 - 0.999 in float32 is 1.3e-5 off its exact value, which
-    moves the first steps' update by 6e-6 relative)."""
-    count = state["count"] + 1
-    mu = {k: (1 - BETA1) * g + BETA1 * state["mu"][k] for k, g in grads.items()}
-    nu = {k: (1 - BETA2) * (g * g) + BETA2 * state["nu"][k]
-          for k, g in grads.items()}
-    one = np.float32(1.0)
-    c1 = float(one - np.float32(BETA1) ** np.float32(count))
-    c2 = float(one - np.float32(BETA2) ** np.float32(count))
-    updates = {k: (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + EPS) for k in grads}
+    state["count"] is an int64 scalar on the leaves' device, and the bias
+    corrections are read by it from `bias_corrections` on the device, so a
+    step reads nothing from the host and copies nothing to the device (a
+    CUDA graph can capture it). out: {"count", "mu", "nu"} tensors of the
+    new state's shapes to write the new state into (None: new tensors)."""
+    o = out or {}
+    count = torch.add(state["count"], 1, out=o.get("count"))
+    table = bias_corrections(count.device)
+    row = torch.clamp(count, max=table.shape[0] - 1).reshape(1)
+    c1, c2 = table.index_select(0, row)[0].unbind()
+    divide = torch.mul if table.is_cuda else torch.div     # bias_corrections' form
+    mu = {k: torch.add((1 - BETA1) * g, BETA1 * state["mu"][k],
+                       out=o["mu"][k] if out else None) for k, g in grads.items()}
+    nu = {k: torch.add((1 - BETA2) * (g * g), BETA2 * state["nu"][k],
+                       out=o["nu"][k] if out else None) for k, g in grads.items()}
+    updates = {k: divide(mu[k], c1) / (torch.sqrt(divide(nu[k], c2)) + EPS)
+               for k in grads}
     return updates, {"count": count, "mu": mu, "nu": nu}
 
 
@@ -124,27 +155,63 @@ def make_train_step(
     and second moments per optimizable leaf, as optax.scale_by_adam's; see
     `adam_update`), on whole (T, ...) leaves, so it equals the JAX
     package's optax.scale_by_adam + lr map step for step:
-    p <- p - lr_map[k] * lr_scale * lr_factor * update. The step returns a
-    new params dict: optimizable leaves are new tensors, frozen leaves are
-    the caller's tensors, untouched. With spans on (util/profiling.py) a
-    step is the span `step`, holding `step.forward` (the energy),
-    `step.backward` (its gradients) and `step.adam`.
+    p <- p + ((-lr_map[k] * lr_scale) * lr_factor) * update, the factor
+    formed on the host and held as a float32 scalar on the device
+    (`step.learning_rates`). The step returns a new params dict: optimizable
+    leaves are new tensors, frozen leaves are the caller's tensors,
+    untouched. With spans on (util/profiling.py) a step is the span `step`,
+    holding `step.forward` (the energy), `step.backward` (its gradients)
+    and `step.adam`.
+
+    `step.body(params, opt_state, batch, generator, lr, out=None)` is the
+    step's work without the `step` span, on the learning rates `lr` of
+    `step.learning_rates`: -> (the optimizable leaves' new values, the new
+    opt_state, E, log); out {"params", "count", "mu", "nu"} holds tensors
+    to write the new values and state into. tracker/step_graph.py captures
+    it as CUDA graphs.
     """
+    keys = sorted(opt_leaves)
+    lr_base = {k: -lr_map[k] * lr_scale for k in keys}
+    held: Dict[torch.device, list] = {}    # device -> [lr_factor, {leaf: lr}]
+
     def init_opt_state(params: P.Params) -> Dict:
-        keys = sorted(opt_leaves)
-        return {"count": 0,
+        dev = next(iter(params.values())).device
+        return {"count": torch.zeros((), dtype=torch.int64, device=dev),
                 "mu": {k: torch.zeros_like(params[k]) for k in keys},
                 "nu": {k: torch.zeros_like(params[k]) for k in keys}}
 
+    def learning_rates(lr_factor: float, device) -> Dict[str, torch.Tensor]:
+        """Each leaf's (-lr_map[k] * lr_scale) * lr_factor as a float32
+        scalar on `device`: the same tensors at every call, filled again
+        (a fill, no copy from the host) when lr_factor changes."""
+        device = torch.device(device)
+        if device not in held:
+            held[device] = [None, {k: torch.empty((), dtype=torch.float32, device=device)
+                                   for k in keys}]
+        if held[device][0] != lr_factor:
+            for k in keys:
+                held[device][1][k].fill_(lr_base[k] * lr_factor)
+            held[device][0] = lr_factor
+        return held[device][1]
+
+    def body(params: P.Params, opt_state: Dict, batch: Dict,
+             generator: torch.Generator, lr: Dict[str, torch.Tensor],
+             out: Optional[Dict] = None):
+        E, log, grads = loss_and_grads(energy_fn, params, opt_leaves, batch,
+                                       generator)
+        with span("step.adam"), torch.no_grad():
+            updates, opt_state = adam_update(grads, opt_state, out)
+            new = {k: torch.add(params[k], lr[k] * updates[k],
+                                out=out["params"][k] if out else None)
+                   for k in updates}
+        return new, opt_state, E, log
+
     def step(params: P.Params, opt_state: Dict, batch: Dict,
              generator: torch.Generator, lr_factor: float = 1.0):
+        lr = learning_rates(lr_factor, opt_state["count"].device)
         with span("step"):
-            E, log, grads = loss_and_grads(energy_fn, params, opt_leaves, batch,
-                                           generator)
-            with span("step.adam"), torch.no_grad():
-                updates, opt_state = adam_update(grads, opt_state)
-                new = {k: params[k] + (-lr_map[k] * lr_scale) * lr_factor * updates[k]
-                       for k in updates}
+            new, opt_state, E, log = body(params, opt_state, batch, generator, lr)
         return {**params, **new}, opt_state, E, log
 
+    step.body, step.learning_rates = body, learning_rates
     return init_opt_state, step

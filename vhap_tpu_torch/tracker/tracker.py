@@ -11,8 +11,14 @@ On the device:
   * one train step per (stage, lr_scale), built once from make_energy_fn
     and make_train_step and reused across batches and epochs; Adam's state
     is re-initialised from the current parameters at every stage;
-  * the step returns a new parameter dict, so nothing keeps a replaced
-    tensor alive;
+  * on a card, outside a process group, the step's second call captures it
+    as CUDA graphs and later calls replay them (tracker/step_graph.py): the
+    step then returns the graphs' own parameter and Adam buffers, which the
+    call after next overwrites (no call writes the tensors it is given), and
+    an energy and log that the next call may overwrite (read at once), and
+    one step's graphs live at a time (summary()["step_graph"] counts the
+    calls run eager, captured and replayed); elsewhere the eager step
+    returns a new parameter dict;
   * a prefetch thread decodes frames into pinned host batches; the main
     thread copies them to the card without blocking;
   * the loop never reads a device scalar per step: train scalars are read
@@ -72,8 +78,8 @@ from vhap_tpu_torch.parallel import sharding
 from vhap_tpu_torch.tracker import media
 from vhap_tpu_torch.tracker import params as P
 from vhap_tpu_torch.tracker.energy import make_albedo_fn, make_energy_fn
-from vhap_tpu_torch.tracker.optim import (leaf_learning_rates, make_train_step,
-                                          stage_optimizable_leaves)
+from vhap_tpu_torch.tracker.optim import leaf_learning_rates, stage_optimizable_leaves
+from vhap_tpu_torch.tracker.step_graph import StepGraphs, graphed_train_step
 from vhap_tpu_torch.util.log import get_logger
 from vhap_tpu_torch.util.profiling import StepTimer, span
 
@@ -255,10 +261,11 @@ class GlobalTracker:
         self._media_lock = threading.Lock()
         self.media_write_s = 0.0    # host time spent writing media (bg thread)
         self.media_blocked_s = 0.0  # main-thread time blocked on media backlog
-        self.step_timer = StepTimer()
+        self.step_timer = StepTimer(device=self.device)
         self.steps_by_stage: Counter = Counter()   # train steps run, per stage
         self.eval_calls = 0                        # evaluation energies run
         self._step_cache: Dict = {}
+        self._step_graphs = StepGraphs()
         self._energy_cache: Dict = {}
         self._lr_map = leaf_learning_rates(cfg)
 
@@ -432,8 +439,8 @@ class GlobalTracker:
                 self.head, self.cfg, self.get_albedo, self.image_size,
                 self.n_timesteps, stage, with_aux=False, device=self.device)
             opt_leaves = stage_optimizable_leaves(self.cfg, stage, self.params)
-            self._step_cache[key] = make_train_step(
-                energy, opt_leaves, self._lr_map, lr_scale)
+            self._step_cache[key] = graphed_train_step(
+                energy, opt_leaves, self._lr_map, lr_scale, self._step_graphs)
         return self._step_cache[key]
 
     def optimize_stage(self, stage: str, batch=None, batches=None,
@@ -826,6 +833,7 @@ class GlobalTracker:
             "ms_per_step": {st: self.step_timer.median_ms(st)
                             for st in self.steps_by_stage},
             "eval_calls": self.eval_calls,
+            "step_graph": self._step_graphs.counts(),
             "media_write_s": self.media_write_s,
             "media_blocked_s": self.media_blocked_s,
             "native_batches": getattr(self.dataset, "native_batches", None),

@@ -1,11 +1,15 @@
 """Step timing and layer spans.
 
 Counterpart of vhap_tpu/util/profiling.py:
-  * StepTimer: rolling steps/sec and the per-step wall times of each stage
-    (for medians), surfaced in the tracker's scalar logs;
+  * StepTimer: rolling steps/sec and the per-step times of each stage
+    (for medians), surfaced in the tracker's scalar logs; on a card they
+    are the device's times between steps;
   * span(name): a named host interval around one layer of the loop (the
     step and its forward, backward and Adam, FLAME, the render and its
     parts, the loop's batch wait, copy, checkpoint, warm start and logs).
+    A step replayed from a CUDA graph (tracker/step_graph.py) opens `step`
+    and `step.replay` only; the call that captures it, `step.capture`
+    around the recording, whose ops open the layers' spans once.
 
 Spans are off by default, and then `span` costs one check of a module flag
 and returns a shared null context. `enable_spans(True)` turns them on for
@@ -100,13 +104,27 @@ def take_spans() -> List[Span]:
 
 
 class StepTimer:
-    """Rolling throughput and the per-step wall times of each stage."""
+    """Rolling throughput and the per-step times of each stage.
 
-    def __init__(self, window: int = 50):
+    `stage_deltas` holds the host's intervals between ticks. On a CUDA
+    `device` each tick also records an event on the current stream, and
+    `steps_per_sec` and `median_ms` read the intervals between the events
+    instead: the device's time per step. The host's intervals stop timing a
+    step once the host queues steps ahead of the device (a step replayed
+    from a CUDA graph takes the host about a millisecond). A tick reads the
+    events the device has passed and never waits; `median_ms` waits for the
+    last one."""
+
+    def __init__(self, window: int = 50, device=None):
         self.window = window
         self._last: Optional[float] = None
         self._deltas = []
         self.stage_deltas: Dict[str, List[float]] = defaultdict(list)
+        self._cuda = device is not None and torch.device(device).type == "cuda"
+        self._event = None            # the last tick's event
+        self._pending = deque()       # (stage, start event, end event) unread
+        self._device_window = deque(maxlen=window)
+        self.device_deltas: Dict[str, List[float]] = defaultdict(list)
 
     def tick(self, stage: str = "") -> None:
         now = time.perf_counter()
@@ -117,19 +135,46 @@ class StepTimer:
                 self._deltas.pop(0)
             self.stage_deltas[stage].append(dt)
         self._last = now
+        if self._cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            if self._event is not None:
+                self._pending.append((stage, self._event, event))
+            self._event = event
+            self._read_device(wait=False)
 
     def reset_clock(self) -> None:
         """Call when entering a stage so compile time isn't attributed."""
         self._last = None
+        self._event = None
+
+    def _read_device(self, wait: bool) -> None:
+        """Move the intervals whose end the device has passed into
+        device_deltas (with wait: all of them, after the last ends)."""
+        if wait and self._pending:
+            self._pending[-1][2].synchronize()
+        while self._pending and self._pending[0][2].query():
+            stage, start, end = self._pending.popleft()
+            dt = start.elapsed_time(end) * 1e-3
+            self.device_deltas[stage].append(dt)
+            self._device_window.append(dt)
 
     @property
     def steps_per_sec(self) -> float:
-        if not self._deltas:
+        deltas = self._deltas
+        if self._cuda:
+            self._read_device(wait=False)
+            deltas = self._device_window
+        if not deltas:
             return 0.0
-        return len(self._deltas) / sum(self._deltas)
+        return len(deltas) / sum(deltas)
 
     def median_ms(self, stage: str) -> Optional[float]:
-        """Median wall time of one of the stage's steps, in ms (the first
-        step after each reset_clock is not timed)."""
-        d = self.stage_deltas.get(stage)
+        """Median time of one of the stage's steps, in ms (the first step
+        after each reset_clock is not timed)."""
+        if self._cuda:
+            self._read_device(wait=True)
+            d = self.device_deltas.get(stage)
+        else:
+            d = self.stage_deltas.get(stage)
         return statistics.median(d) * 1e3 if d else None
