@@ -227,7 +227,8 @@ Phases (any failure ends the run with a non-zero exit):
      one-process step on the same card, the gradients bit-identical across
      ranks; on rank 0, K1 identical to its plain version and K3 within
      1e-5 at the rank's own eval-step launch; then SHARD_STEPS steps with
-     the disturbance on, counts zeroed before and read after (K1..K4 once
+     the disturbance on through the tracker's graphed step, every call
+     eager under gloo, counts zeroed before and read after (K1..K4 once
      per step on each rank), the parameters bit-identical across ranks;
      each rank's ms per step and peak memory, all_reduce_grads' bytes and
      ms; 30b GlobalTracker with track_nersemble's config at phase 22's
@@ -235,9 +236,13 @@ Phases (any failure ends the run with a non-zero exit):
      native, multiview GT recovery at phase 22's gate, rank 0's folder
      with phase 22's file names), then a resume from the run state after
      the sequential phase (the global stage alone, recovery again); 30c
-     NCCL at world 1 through the same launcher, at 30a's gates; 30d NCCL
-     across min(4, count) cards at 30a's gates where there are two or
-     more, else a line saying it was not run;
+     NCCL at world 1 through the same launcher, at 30a's gates, the step
+     captured with its collectives on its second call and replayed after
+     it (K1..K4 once per replay), K3/K4 held to their plain versions at
+     rank 0's last replayed launch; 30d as 30c across min(4, count) cards
+     where there are two or more, on a rig of 16 views at 802x550 (on four
+     cards 4 views a rank, the nersemble16.seq.x4 cell's batch), else a
+     line saying it was not run;
 each phase group's seconds are printed as it ends, and each kernel's time
 beside the previous kernels' time, a constant (PRIOR_MS); then one JSON
 line of the kernels (each row's `launches` from the train step, and
@@ -737,11 +742,12 @@ def check_sampler(where, args, g=None, seed=3, focus=None):
 def check_replayed_sampler(where, captured):
     """K3 and K4 against their plain versions at the K4 launch of the last
     CUDA graph replay (capture_sampler), K4 with the replay's own
-    cotangent; fails if the last replay's graph holds no sampled launch."""
+    cotangent; fails if the last replay's graph holds no sampled launch.
+    Returns check_sampler's rows."""
     args = replayed_launch(captured)
     if args is None:
         raise RuntimeError(f"{where}: the last CUDA graph replay launched no sampled K4")
-    check_sampler(f"{where}'s last graph replay", args[:6], g=args[6])
+    return check_sampler(f"{where}'s last graph replay", args[:6], g=args[6])
 
 
 def check_sampler_launches(where, captured, n_fwd, n_bwd, focus=None):
@@ -2739,6 +2745,7 @@ def check_viewers(kernels, ckpt, asset_dir, smi_line):
 # ---------------------------------------------------------------------------
 
 SHARD_STEPS = 5                   # 30a's train steps, disturbance on
+X4_SIZE = (802, 550)              # 30d's frames: the nersemble16 cell's (H, W)
 SHARD_TIMEOUT, SHARD_JOIN = 300, 900   # collective and whole-run limits (s)
 
 
@@ -2758,27 +2765,40 @@ def _digest(t) -> str:
 
 
 def sharded_mv_step(device, root, with_grads):
-    """One rank of phases 30a, 30c and 30d: phase 21's 16-view step on this
-    rank's views (tools/multiview_slice.py on the process group). Its E
-    share and the all-reduced gradients with the disturbance off (the
-    gradients returned when `with_grads`, else their digests); on rank 0
-    K1 and K3 at the rank's own eval-step launch (check_k1, check_k3); then
-    SHARD_STEPS train steps with the disturbance on, counts zeroed before and
-    read after, ms per step and peak memory; the parameters' digests after
-    them; all_reduce_grads' bytes and ms (median of 5 on the step's
-    gradients)."""
+    """One rank of phases 30a, 30c and 30d: the 16-view step of the rig at
+    `root` on this rank's views (tools/multiview_slice.py on the process
+    group). Its E share and the all-reduced gradients with the disturbance
+    off (the gradients returned when `with_grads`, else their digests); on
+    rank 0 K1 and K3 at the rank's own eval-step launch (check_k1,
+    check_k3); then SHARD_STEPS train steps with the disturbance on through
+    the tracker's graphed step (tracker/step_graph.py: under NCCL the first
+    call eager, the second captured with its collectives, the rest
+    replayed; under gloo every call eager), counts zeroed before and read
+    after and again from the third call on (the replays'), the calls
+    counted eager, captured and replayed, ms per step and peak memory; on
+    rank 0, K3 and K4 against their plain versions at the last replay's K4
+    launch (check_replayed_sampler) where the step replayed; the
+    parameters' digests after the steps; all_reduce_grads' bytes and ms
+    (median of 5 on the step's gradients)."""
     from vhap_tpu_torch.ops import camera as cam
     from vhap_tpu_torch.parallel import sharding
     from vhap_tpu_torch.tools.multiview_slice import build_multiview_slice
     from vhap_tpu_torch.tracker.energy import fill_cam_params
     from vhap_tpu_torch.tracker.optim import loss_and_grads
+    from vhap_tpu_torch.tracker.step_graph import StepGraphs, graphed_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     ts = build_multiview_slice(root, device=device)
     s = ts.eval
     (H, W), B = s.image_size, s.batch["rgb"].shape[0]
     res = {"rank": sharding.rank(), "world": sharding.world(), "rows": B,
            "weight": s.batch["weight"].tolist(), "backend": torch.distributed.get_backend()}
+
+    def progress(what):
+        log(f"[shard] {res['backend']} rank {res['rank']}: {what} at "
+            f"{time.perf_counter() - t0:.1f} s")
+    progress(f"{B} views of {H}x{W} built")
     E, logs, g = loss_and_grads(ts.make_energy(True, False), s.params, ts.opt_leaves,
                                 s.batch, ts.generator(1))
     res["E"] = float(E)
@@ -2794,23 +2814,37 @@ def sharded_mv_step(device, root, with_grads):
         err3, _, _ = check_k3("rank 0's eval-step launch", sampled["fwd"][0])
         res["k1"], res["k3_err"] = r1["note"], err3
     del aux, sampled
+    progress("gradients and rank 0's eval-step checks done")
     kernels = _kernel_counters()
-    init, step = ts.make_step(True, True)
+    graphs = StepGraphs()
+    init, step = graphed_train_step(ts.make_energy(True, True), ts.opt_leaves,
+                                    ts.lr_map, 1.0, graphs)
     params, state, gen = s.params, init(s.params), ts.generator(sharding.rank())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
     times = []
-    for _ in range(SHARD_STEPS):
-        t = time.perf_counter()
-        params, state, E, _ = step(params, state, s.batch, gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    res["launches"] = {name: k.launches for name, k in kernels.items()}
-    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    res["step_ms"] = times
+    with capture_sampler(keep_last=True) as sampled:
+        for i in range(SHARD_STEPS):
+            if i == 2:
+                before = {name: k.launches for name, k in kernels.items()}
+            t = time.perf_counter()
+            params, state, E, _ = step(params, state, s.batch, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
     res["E_last"] = float(E)
+    res["launches"] = {name: k.launches for name, k in kernels.items()}
+    res["replay_launches"] = {name: k.launches - before[name]
+                              for name, k in kernels.items()}
+    res["step_graph"] = graphs.counts()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    progress(f"{SHARD_STEPS} train steps run, calls {res['step_graph']}")
+    if sharding.rank() == 0 and graphs.replays:
+        k3, k4 = check_replayed_sampler(f"{res['backend']} rank 0", sampled)
+        res["replayed_k3_k4"] = f"K3 {k3['note']}; K4 {k4['note']}"
+    del sampled
+    res["step_ms"] = times
     res["param_digest"] = {k: _digest(v) for k, v in params.items()}
     ar = []
     for _ in range(5):
@@ -2819,7 +2853,9 @@ def sharded_mv_step(device, root, with_grads):
         sharding.all_reduce_grads(g)
         torch.cuda.synchronize()
         ar.append((time.perf_counter() - t) * 1e3)
-    res["allreduce_ms"], res["allreduce_bytes"] = statistics.median(ar), sharding.GRAD_BYTES
+    res["allreduce_ms"] = statistics.median(ar)
+    res["allreduce_bytes"] = sharding.step_collectives()["grads"]["bytes"]
+    progress("all_reduce_grads timed")
     return res
 
 
@@ -2829,7 +2865,10 @@ def check_sharded_step(root, devices, backend, ref, where):
     within 1e-5 relative, every gradient within 1e-3 * max|g| (K4's and
     the vertex normals' atomics change the order), the gradients and, after
     SHARD_STEPS steps, the parameters bit-identical across ranks, K1..K4
-    once per step on every rank. Returns rank 0's launches."""
+    once per step on every rank; under NCCL every rank's step captured on
+    its second call and replayed after it (K1..K4 once per replay), rank
+    0's last replayed K3/K4 launch within check_sampler's gates; under gloo
+    every call eager. Returns rank 0's launches."""
     from vhap_tpu_torch.parallel import sharding
     t = time.perf_counter()
     out = sharding.launch(sharded_mv_step, devices, backend, args=(str(root), True),
@@ -2850,11 +2889,24 @@ def check_sharded_step(root, devices, backend, ref, where):
                                f"{SHARD_STEPS} steps")
     if not (rel <= 1e-5 and max(worst.values()) <= 1e-3):
         raise RuntimeError(f"{where}: E rel {rel} (1e-5), gradient err / max|g| {worst} (1e-3)")
+    graphed = backend == "nccl"
+    want = ({"captures": 1, "replays": SHARD_STEPS - 2, "eager": 1} if graphed
+            else {"captures": 0, "replays": 0, "eager": SHARD_STEPS})
     for r in out:
         bad = {k: n for k, n in r["launches"].items() if n != SHARD_STEPS}
         if bad:
             raise RuntimeError(f"{where}: rank {r['rank']} launched {bad} in "
                                f"{SHARD_STEPS} steps, expected {SHARD_STEPS} each")
+        if r["step_graph"] != want:
+            raise RuntimeError(f"{where}: rank {r['rank']}'s step calls {r['step_graph']}, "
+                               f"expected {want}")
+        bad = {k: n for k, n in r["replay_launches"].items() if n != SHARD_STEPS - 2}
+        if bad:
+            raise RuntimeError(f"{where}: rank {r['rank']} launched {bad} in its calls "
+                               f"3-{SHARD_STEPS}, expected {SHARD_STEPS - 2} each")
+    if graphed != ("replayed_k3_k4" in out[0]):
+        raise RuntimeError(f"{where}: rank 0's replayed K3/K4 launch "
+                           f"{'not ' if graphed else ''}checked")
     log(f"[shard] {where}: {len(devices)} {backend} ranks on {', '.join(devices)} "
         f"(launch wall {wall:.1f} s), rows per rank {out[0]['rows']}, weights "
         f"{[r['weight'] for r in out]}; E (sum of shares) {E:.6f} vs one process "
@@ -2862,11 +2914,13 @@ def check_sharded_step(root, devices, backend, ref, where):
             f"{k} {v:.3g}" for k, v in worst.items())
         + f"; gradients and parameters after {SHARD_STEPS} steps bit-identical "
         f"across ranks; K1 on rank 0: {out[0]['k1']}; K3 on rank 0: err "
-        f"{out[0]['k3_err']:.3g}")
+        f"{out[0]['k3_err']:.3g}; step calls on every rank {want}"
+        + (f"; rank 0's last replay: {out[0]['replayed_k3_k4']}" if graphed else ""))
     for r in out:
         ms = r["step_ms"]
         log(f"[shard] {where} rank {r['rank']}: launches in {SHARD_STEPS} steps "
-            f"{r['launches']}; ms per step {statistics.median(ms[1:]):.3f} (median "
+            f"{r['launches']}, in calls 3-{SHARD_STEPS} {r['replay_launches']}; ms per "
+            f"step {statistics.median(ms[1:]):.3f} (median "
             f"of steps 2-{SHARD_STEPS}; all {[round(x, 3) for x in ms]}); peak "
             f"{r['peak_gib']:.3f} GiB; all_reduce_grads {r['allreduce_bytes']} "
             f"bytes per step, {r['allreduce_ms']:.3f} ms (median of 5)")
@@ -2994,15 +3048,22 @@ def sharding_reference(root):
     return ref
 
 
-def check_multi_card(root, ref):
+def check_multi_card(root):
     """Phase 30d: NCCL across min(4, count) cards where there are two or
-    more, else one line saying so."""
+    more, on a rig of MV_CAMS views at X4_SIZE written under root/x4 (on
+    four cards each rank's batch is the nersemble16.seq.x4 cell's, 4 views
+    of 802x550), against the one-process step on that rig; else one line
+    saying it was not run."""
+    from vhap_tpu_torch.tools.multiview_slice import write_rig
     n = min(4, torch.cuda.device_count())
-    if n >= 2:
-        check_sharded_step(root, [f"cuda:{i}" for i in range(n)], "nccl", ref, "30d")
-    else:
+    if n < 2:
         log(f"[shard] 30d not run: {torch.cuda.device_count()} card(s) visible, "
             f"NCCL across cards needs two or more")
+        return
+    rig = Path(root) / "x4"
+    write_rig(rig, n_cams=MV_CAMS, n_frames=MV_TRACK_FRAMES, size=X4_SIZE, device="cuda")
+    check_sharded_step(rig, [f"cuda:{i}" for i in range(n)], "nccl",
+                       sharding_reference(rig), "30d")
 
 
 def check_sharding(root, run_dir, smi_line):
@@ -3016,7 +3077,7 @@ def check_sharding(root, run_dir, smi_line):
         root, ["cuda:0", "cuda:0"], "gloo", ref, "30a")}
     paths["sharded track_nersemble (per rank)"] = check_sharded_track(root, run_dir)
     check_sharded_step(root, ["cuda:0"], "nccl", ref, "30c")
-    check_multi_card(root, ref)
+    check_multi_card(root)
     return paths
 
 
@@ -3273,23 +3334,19 @@ def main() -> int:
 
 
 def main_multi_card() -> int:
-    """`python3 chip_smoke.py --multi-card`: phases 1-2, the rig of phase
-    21 and 30d alone, with the one-process step it is compared with, for a
-    machine with several cards."""
+    """`python3 chip_smoke.py --multi-card`: phases 1-2 and 30d alone (its
+    rig and the one-process step it is compared with), for a machine with
+    several cards."""
     import tempfile
-
-    from vhap_tpu_torch.tools.multiview_slice import write_rig
     smi_line = card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     build_kernels()
     with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        write_rig(root, n_cams=MV_CAMS, n_frames=MV_TRACK_FRAMES, size=512, device="cuda")
-        log(f"[time] phases 1-2, the rig: {time.perf_counter() - t0:.1f} s")
+        log(f"[time] phases 1-2: {time.perf_counter() - t0:.1f} s")
         log(f"[shard] phase 30d on {smi_line}")
-        check_multi_card(root, sharding_reference(root))
+        check_multi_card(tmp)
         log(f"[time] 30d: run {time.perf_counter() - t0:.1f} s")
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

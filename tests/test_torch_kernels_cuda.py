@@ -888,3 +888,48 @@ def test_capturing_another_step_releases_the_graph(dev, small_train):
     _two_steps(ts, a[1], a[0], gen)       # warm already: both calls graphed
     assert graphs.live is a[1] and b[1].graph is None
     assert graphs.counts() == {"captures": 3, "replays": 1, "eager": 2}
+
+
+def test_graphed_step_two_nccl_ranks(dev, tmp_path):
+    """The sharded step on the graphed path: two NCCL ranks (cuda:0 and
+    cuda:1, sharding.launch) each run the 4-view multiview step at 128^2
+    (2 views a rank, disturbance on) 5 steps chained, as
+    test_graphed_step_matches_eager on one card, with its tolerances and
+    their reasons: against the eager step from each call's inputs, the
+    draws, the generator's state and the kernels' launches equal, the
+    energy within 5e-6, the median leaf's change within 4e-7 and the worst
+    within 5e-4; against an eager chain, the draws and generator states
+    equal, the median leaf's change within CHAINED_MEDIAN_GAP and the
+    worst within 5e-4. Both ranks capture on their second call and replay
+    after it, with the gradient bucket all-reduced inside the graph, and
+    the replicas' parameters and Adam state are bit-identical after every
+    step."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: one NCCL rank per card")
+    import torch_sharding_cases as C
+    from vhap_tpu_torch.parallel import sharding
+    from vhap_tpu_torch.tools.multiview_slice import write_rig
+    write_rig(tmp_path, n_cams=4, n_frames=2, size=128, n_shape=20, n_expr=10, device=dev)
+    ranks = sharding.launch(C.graphed_nccl_steps, ["cuda:0", "cuda:1"], "nccl",
+                            args=(str(tmp_path),), timeout=300, join_timeout=900)
+    for r in ranks:
+        assert r["capturable"] and r["graph"] == {"captures": 1, "replays": 3, "eager": 1}
+        assert r["tally"]["grads"]["calls"] == 1 and r["tally"]["grads"]["bytes"] > 0
+    for i, steps in enumerate(zip(*(r["steps"] for r in ranks))):
+        E = [sum(st["E"][j] for st in steps) for j in (0, 1)]
+        assert abs(E[0] - E[1]) <= 5e-6 * abs(E[1]), (i, E)
+        assert len({st["digest"][0] for st in steps}) == 1, i     # the replicas
+        assert len({st["digest"][1] for st in steps}) == 1, i
+        for st in steps:
+            assert st["count"] == [i + 1] * 3 and min(st["n_draws"]) > 0, (i, st["count"])
+            assert all(st["draws_equal"]) and all(st["gen_equal"]), i
+            g, e = st["launches"]
+            assert g == e and e["vhap_fused_interp_bwd"] == 1, (i, g, e)
+            one, chained = st["one"], st["chained"]
+            print(f"step {i + 1}: median leaf change gap, graphed vs eager from its "
+                  f"inputs {float(np.median(list(one.values()))):.3g}, vs the eager "
+                  f"chain {float(np.median(list(chained.values()))):.3g}")
+            assert float(np.median(list(one.values()))) <= 4e-7, (i, one)
+            assert max(one.values()) <= 5e-4, (i, one)
+            assert float(np.median(list(chained.values()))) <= CHAINED_MEDIAN_GAP, (i, chained)
+            assert max(chained.values()) <= 5e-4, (i, chained)

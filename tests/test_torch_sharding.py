@@ -319,6 +319,42 @@ def test_train_steps_descend_like_one_process(runs):
     np.testing.assert_allclose(E1, one["E1"], rtol=5e-3)
 
 
+@pytest.mark.parametrize("check", ["stays_eager_under_gloo", "spans_nest", "bytes_by_caller"])
+def test_sharded_step_instruments(runs, check):
+    """The tracker's graphed step on two gloo ranks (train_steps' last
+    step): it runs eager, as gloo reduces on the host, with the ranks'
+    agreement a working collective, and it would stay eager on a card;
+    each collective is a `sharding.all_reduce` span inside the layer it
+    serves; the step's collectives counted by caller are the bytes
+    torch.distributed reduced."""
+    one = runs["one"]["steps"]
+    for st in [r["steps"] for r in runs["two"]]:
+        t = st["tally"]
+        if check == "stays_eager_under_gloo":
+            assert st["graph"] == {"captures": 0, "replays": 0, "eager": 3}
+            assert st["capturable"] is False and st["agree"] == [True, False]
+            # inputs on one card, as gloo on CUDA tensors has them: still
+            # eager under gloo, captured without a group
+            assert st["may_capture_on_card"] is False and one["may_capture_on_card"] is True
+            # one process: the CPU keeps the eager step; no collective
+            assert one["graph"] == st["graph"] and one["capturable"] is True
+            assert one["reduced"] == one["span_parents"] == [] and one["tally"] == {}
+        elif check == "spans_nest":
+            parents = st["span_parents"]
+            assert len(parents) == len(st["reduced"]) == sum(v["calls"] for v in t.values())
+            assert sorted(set(parents)) == ["render.disturb", "step.backward", "step.forward"]
+            assert parents.count("render.disturb") == parents.count("step.backward") == 1
+        else:
+            assert sorted(t) == ["disturb_pool", "grads", "max_rank", "other"]
+            assert t["grads"] == {"calls": 1, "bytes": st["grad_bytes"]}
+            assert t["disturb_pool"] == {"calls": 1, "bytes": st["pool_bytes"]}
+            assert t["max_rank"] == {"calls": 1, "bytes": 2 * 4}
+            # the energy's normalizers: float32 scalars
+            assert t["other"]["calls"] >= 2 and t["other"]["bytes"] == 4 * t["other"]["calls"]
+            assert sorted(st["reduced"]) == sorted(
+                [st["grad_bytes"], st["pool_bytes"], 8] + [4] * t["other"]["calls"])
+
+
 # ---------------------------------------------------------------------------
 # GlobalTracker (test_sharding.py:236-305)
 # ---------------------------------------------------------------------------

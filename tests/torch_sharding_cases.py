@@ -13,6 +13,7 @@ import os
 import shutil
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -179,23 +180,73 @@ def distribution(rate=0.5):
 def train_steps(th, n_steps=3):
     """n_steps train steps of the sequential stage, the disturbance on, from
     the test parameters on this rank's rows (generator seeded with the
-    rank); E (disturbance off) before and after, and the parameters after."""
+    rank), through the tracker's graphed step, which stays eager on the CPU
+    and under gloo; E (disturbance off) before and after, and the
+    parameters after. The last step runs with spans on and the bytes of
+    every torch.distributed.all_reduce recorded: the step's counts of eager,
+    captured and replayed calls, its collectives by caller
+    (sharding.step_collectives), the recorded bytes, the parent span of
+    each `sharding.all_reduce` span, and the bytes the gradient bucket and
+    the disturbance pool should have; and the step's capture verdict for
+    these inputs presented as tensors on cuda:0."""
+    import torch.distributed as dist
+
     from vhap_tpu_torch.convert import params_from_numpy
     from vhap_tpu_torch.tracker import optim as TO
+    from vhap_tpu_torch.tracker import step_graph
+    from vhap_tpu_torch.tracker.step_graph import StepGraphs, graphed_train_step
+    from vhap_tpu_torch.util import profiling
     p, full = inputs(2, th.num_verts)
     local = to_torch(sharding.shard_padded(full))
     cfg, en = port_energy(th, SEQ_STAGE, disturb=True)
     _, en_off = port_energy(th, SEQ_STAGE)
     leaves = TO.stage_optimizable_leaves(cfg, SEQ_STAGE, p)
-    init, step = TO.make_train_step(en, leaves, TO.leaf_learning_rates(cfg))
+    graphs = StepGraphs()
+    init, step = graphed_train_step(en, leaves, TO.leaf_learning_rates(cfg), 1.0, graphs)
     params = params_from_numpy(p, device="cpu")
     gen = torch.Generator().manual_seed(sharding.rank())
     E0 = float(TO.loss_and_grads(en_off, params, leaves, local, gen)[0])
     state = init(params)
-    for _ in range(n_steps):
+    for _ in range(n_steps - 1):
         params, state, _, _ = step(params, state, local, gen)
+    reduced, real = [], dist.all_reduce
+
+    def recorded(t, *args, **kwargs):
+        reduced.append(t.numel() * t.element_size())
+        return real(t, *args, **kwargs)
+    dist.all_reduce = recorded
+    profiling.take_spans()
+    profiling.enable_spans(True)
+    try:
+        params, state, _, _ = step(params, state, local, gen)
+    finally:
+        profiling.enable_spans(False)
+        dist.all_reduce = real
+    spans = profiling.take_spans()
     E1 = float(TO.loss_and_grads(en_off, params, leaves, local, gen)[0])
-    return {"E0": E0, "E1": E1, "params": {k: v.numpy() for k, v in params.items()}}
+    n = local["rgb"][..., 0].numel()
+    stride = cfg.render.disturb_pool_stride
+    # the capture verdict for inputs on one card, as gloo on CUDA tensors
+    # presents them: every tensor's device and the generator's cuda:0
+    card = torch.device("cuda", 0)
+    real_sig = step_graph._signature
+    step_graph._signature = lambda ts: (None if real_sig(ts) is None else
+                                        tuple(s[:3] + (card,) for s in real_sig(ts)))
+    try:
+        on_card = step_graph._GraphedStep._may_capture(
+            params, local, types.SimpleNamespace(device=card))
+    finally:
+        step_graph._signature = real_sig
+    pool = n // (128 * stride) * 128 if stride > 1 else n
+    return {"E0": E0, "E1": E1, "params": {k: v.numpy() for k, v in params.items()},
+            "graph": graphs.counts(), "capturable": sharding.capturable(),
+            "may_capture_on_card": on_card,
+            "agree": [sharding.all_agree(True), sharding.all_agree(sharding.rank() == 0)],
+            "tally": sharding.step_collectives(), "reduced": reduced,
+            "span_parents": [spans[sp.parent].name if sp.parent >= 0 else None
+                             for sp in spans if sp.name == "sharding.all_reduce"],
+            "grad_bytes": sum(params[k].numel() * params[k].element_size() for k in leaves),
+            "pool_bytes": sharding.world() * pool * 4}
 
 
 def mv_config(root, out):
@@ -417,3 +468,112 @@ def fails_on_rank_1(device):
     if sharding.rank() == 1:
         raise ValueError("rank 1 fails")
     sharding.all_reduce_sum(torch.zeros(1))
+
+
+def _draws_recorded():
+    """Record every torch.rand / torch.randint result, cloned where it is
+    drawn (a graph's clone is rewritten on each replay); returns (draws,
+    undo)."""
+    draws, real = [], {n: getattr(torch, n) for n in ("rand", "randint")}
+    for name, fn in real.items():
+        def recorded(*args, _fn=fn, **kwargs):
+            out = _fn(*args, **kwargs)
+            draws.append(out.clone())
+            return out
+        setattr(torch, name, recorded)
+    return draws, lambda: [setattr(torch, n, fn) for n, fn in real.items()]
+
+
+def graphed_nccl_steps(device, rig_root, n_steps=5):
+    """One NCCL rank of the card test of the sharded graphed step: the
+    multiview step (tools/multiview_slice.py at the rig's size, this rank's
+    views), n_steps chained from one state and generator seed (the rank's)
+    through graphed_train_step (1 eager call, 1 capture, replays), and
+    before each graphed call the eager step from the same inputs and
+    generator state; then an eager chain from the start. Per step: the
+    energy shares, the draws and generator states alike or not, the
+    kernels' launches, each leaf's change gap against both (as
+    tests/test_torch_kernels_cuda.py's one-card test) and digests of the
+    parameters and Adam state; then the calls counted and the collectives
+    of the captured step by caller."""
+    import hashlib
+
+    from vhap_tpu_torch.ops.kernels import Kernel
+    from vhap_tpu_torch.tools.multiview_slice import build_multiview_slice
+    from vhap_tpu_torch.tracker.optim import make_train_step
+    from vhap_tpu_torch.tracker.step_graph import StepGraphs, graphed_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ts = build_multiview_slice(rig_root, device=device, n_shape=20, n_expr=10, tex_res=64)
+    s = ts.eval
+    energy = ts.make_energy(True, True)
+    keys = sorted(ts.opt_leaves)
+    graphs = StepGraphs()
+    init, eager_step = make_train_step(energy, ts.opt_leaves, ts.lr_map)
+    _, graphed_step = graphed_train_step(energy, ts.opt_leaves, ts.lr_map, 1.0, graphs)
+    draws, undo = _draws_recorded()
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for k in sorted(tensors):
+            h.update(tensors[k].detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def call(step, params, state, gen):
+        n, n0 = len(draws), {k: k.launches for k in Kernel.made}
+        p, st, E, _ = step(params, state, s.batch, gen, 1.0)
+        torch.cuda.synchronize()
+        return p, st, {"E": float(E), "count": int(st["count"]), "draws": draws[n:],
+                       "gen": gen.get_state(), "params": {k: p[k].clone() for k in keys},
+                       "launches": {k.symbol: k.launches - n0.get(k, 0) for k in Kernel.made},
+                       "digest": digest({**p, **{f"{m}.{k}": v for m in ("mu", "nu")
+                                                 for k, v in st[m].items()}})}
+
+    def gaps(p0, a, b):
+        out = {}
+        for k in keys:
+            na = float(torch.linalg.vector_norm((a[k] - p0[k]).double()))
+            nb = float(torch.linalg.vector_norm((b[k] - p0[k]).double()))
+            out[k] = abs(na - nb) / max(nb, 1e-30)
+        return out
+
+    try:
+        seed = 1234567 + sharding.rank()
+        gen = ts.generator(seed)
+        params, state = s.params, init(s.params)
+        graphed, alone, recorded = [], [], {}
+        for i in range(n_steps):
+            start = gen.get_state()
+            alone.append(call(eager_step, params, state, gen)[2])
+            gen.set_state(start)
+            before, turn = graphs.counts(), getattr(graphed_step, "turn", 0)
+            params, state, g = call(graphed_step, params, state, gen)
+            if graphs.captures > before["captures"]:   # both graphs' draws
+                half = len(g["draws"]) // 2
+                recorded = {0: g["draws"][:half], 1: g["draws"][half:]}
+            if graphs.eager == before["eager"]:        # this call's graph
+                g["draws"] = [d.clone() for d in recorded[turn]]
+            graphed.append(g)
+        tally = sharding.step_collectives()
+        gen = ts.generator(seed)
+        params, state, chain = s.params, init(s.params), []
+        for i in range(n_steps):
+            params, state, e = call(eager_step, params, state, gen)
+            chain.append(e)
+    finally:
+        undo()
+    steps, prev = [], {k: s.params[k] for k in keys}
+    for g, e, c in zip(graphed, alone, chain):
+        steps.append({
+            "E": [g["E"], e["E"]], "count": [g["count"], e["count"], c["count"]],
+            "n_draws": [len(g["draws"]), len(e["draws"]), len(c["draws"])],
+            "draws_equal": [len(g["draws"]) == len(r["draws"]) and all(
+                torch.equal(a, b) for a, b in zip(g["draws"], r["draws"])) for r in (e, c)],
+            "gen_equal": [torch.equal(g["gen"], r["gen"]) for r in (e, c)],
+            "launches": [g["launches"], e["launches"]],
+            "one": gaps(prev, g["params"], e["params"]),
+            "chained": gaps(s.params, g["params"], c["params"]),
+            "digest": [g["digest"], c["digest"]]})
+        prev = g["params"]
+    return {"steps": steps, "graph": graphs.counts(), "tally": tally,
+            "capturable": sharding.capturable()}

@@ -237,7 +237,7 @@ def _cluster_disturbance(rgba, rgba_bg, cid, generator, rate_fg, rate_bg,
         g = N // (128 * pool_stride)
         keys = keys[:g * 128 * pool_stride].reshape(
             g, pool_stride, 128)[:, 0].reshape(-1)
-    keys = sharding.all_gather_rows(keys)     # the whole batch's pool
+    keys = sharding.all_gather_rows(keys, "disturb_pool")   # the whole batch's pool
     if keys.numel() == 0:
         return rgba                      # an empty pool swaps nothing
     sorted_keys = torch.sort(keys).values

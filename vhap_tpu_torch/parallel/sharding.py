@@ -25,6 +25,27 @@ an all-reduce of a zero-filled buffer in which each rank writes its own
 slot (exact: x + 0 = x). Without a process group each helper is the
 identity, so a one-process run is unchanged.
 
+Under NCCL a train step's collectives (the gradient bucket, the
+disturbance pool's keys, reg_diffuse's max, the energy's normalizers) run
+inside the step's CUDA graphs (tracker/step_graph.py). PyTorch's notes on
+CUDA graphs with NCCL ask for three things:
+  * NCCL 2.9.6 or later, the first that captures collectives (PyTorch's
+    CUDA builds ship a later one);
+  * a communicator warmed before the capture: `init` passes the card,
+    which forms the communicator at once, and a step's first call runs
+    eager, so each of its collectives is used once before the capture
+    (NCCL connects peers for a collective at its first use);
+  * no watchdog query of work recorded in a capture, which the notes get
+    by turning asynchronous error handling off. PyTorch 2.11 keeps
+    captured work out of its watchdog (the sharded step captures and
+    replays with the handling on, PERF.md), and the capture's thread_local
+    mode leaves the watchdog's queries of eager work legal, so the
+    handling stays on, and with it the abort of a collective that
+    outlasts the group's timeout.
+With spans on (util/profiling.py) each collective is the span
+`sharding.all_reduce`; the collectives of the last train step run eager or
+captured are counted by the label their caller gives (`step_collectives`).
+
 `launch` spawns one worker per device and fails when any worker fails.
 A run under `torchrun` (RANK / WORLD_SIZE set) joins its group through
 `init_from_env`.
@@ -32,6 +53,8 @@ A run under `torchrun` (RANK / WORLD_SIZE set) joins its group through
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import os
 import pickle
 import shutil
@@ -48,6 +71,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from vhap_tpu_torch.util.profiling import span
 
 BATCH_AXIS = "data"
 
@@ -84,6 +109,15 @@ def init(backend: str, rank_: int, world_: int, init_method: str,
         kwargs["device_id"] = torch.device(device)
     dist.init_process_group(backend, init_method=init_method, rank=rank_,
                             world_size=world_, **kwargs)
+
+
+def capturable() -> bool:
+    """Whether this process's collectives may run inside a CUDA graph
+    (module docstring): without a process group, or under NCCL. Gloo
+    reduces on the host (it copies a CUDA tensor out, sums it on CPU
+    threads and copies it back), which a graph of device work cannot
+    record: its steps stay eager."""
+    return not is_distributed() or dist.get_backend() == "nccl"
 
 
 def from_torchrun() -> bool:
@@ -273,21 +307,54 @@ def _coll_device() -> torch.device:
     return torch.device("cpu")
 
 
-def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
-    """A reduced copy of x, on x's device. Gloo reduces CUDA tensors as they
-    are; NCCL needs the card."""
-    buf = x.detach().clone().contiguous()
+_tally: Optional[Dict[str, Dict[str, int]]] = None     # the step being run
+_last_step: Dict[str, Dict[str, int]] = {}
+
+
+@contextlib.contextmanager
+def step_tally():
+    """Count the collectives run inside as one train step's
+    (optim.make_train_step's body: an eager step, or the recording of a
+    captured one; a replay runs what its capture recorded)."""
+    global _tally, _last_step
+    outer, _tally = _tally, collections.defaultdict(lambda: {"calls": 0, "bytes": 0})
+    try:
+        yield
+    finally:
+        _last_step, _tally = dict(_tally), outer
+
+
+def step_collectives() -> Dict[str, Dict[str, int]]:
+    """The collectives of the last train step run eager or captured in this
+    process: caller's label -> {"calls", "bytes"} (bytes of the buffers
+    reduced); empty before the first step."""
+    return {c: dict(v) for c, v in _last_step.items()}
+
+
+def _all_reduce(x: torch.Tensor, op, caller: str = "other") -> torch.Tensor:
+    """x, a contiguous buffer the caller has just built, reduced over ranks
+    in place where it lies on the collective's device (NCCL needs the card;
+    gloo reduces CUDA tensors as they are), else in a copy there; returned
+    on x's device. `caller` labels it in step_collectives."""
+    buf = x.detach()
     if dist.get_backend() == "nccl" and not buf.is_cuda:
         buf = buf.to(_coll_device())
-    dist.all_reduce(buf, op=op)
+    if _tally is not None:
+        _tally[caller]["calls"] += 1
+        _tally[caller]["bytes"] += buf.numel() * buf.element_size()
+    with span("sharding.all_reduce"):
+        dist.all_reduce(buf, op=op)
     return buf.to(x.device)
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    return _all_reduce(x, dist.ReduceOp.SUM) if is_distributed() else x
+def all_reduce_sum(x: torch.Tensor, caller: str = "other") -> torch.Tensor:
+    if not is_distributed():
+        return x
+    return _all_reduce(x.detach().clone(memory_format=torch.contiguous_format),
+                       dist.ReduceOp.SUM, caller)
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, caller: str = "other") -> torch.Tensor:
     """Every rank's x (the same shape everywhere) stacked along axis 0 in
     rank order: an all-reduce of a zero-filled (world, ...) buffer in which
     each rank writes its own slot."""
@@ -295,8 +362,17 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
         return x
     buf = x.new_zeros((world(),) + tuple(x.shape))
     buf[rank()] = x.detach()
-    buf = _all_reduce(buf, dist.ReduceOp.SUM)
+    buf = _all_reduce(buf, dist.ReduceOp.SUM, caller)
     return buf.reshape((-1,) + tuple(x.shape[1:]))
+
+
+def all_agree(flag: bool) -> bool:
+    """Whether `flag` holds on every rank: one all-reduce (MIN) of one
+    integer, read on the host; `flag` itself without a process group."""
+    if not is_distributed():
+        return bool(flag)
+    x = torch.tensor([int(bool(flag))], dtype=torch.int32, device=_coll_device())
+    return bool(_all_reduce(x, dist.ReduceOp.MIN).item())
 
 
 def select_rows(x: torch.Tensor, rows: Sequence[int]) -> torch.Tensor:
@@ -379,15 +455,11 @@ def replicate_tree(tree: Dict[str, torch.Tensor], src: int = 0) -> Dict[str, tor
     return {k: out[k] for k in tree}
 
 
-# the bytes of all_reduce_grads' last bucket
-GRAD_BYTES = 0
-
-
 def all_reduce_grads(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The sum over ranks of every gradient: the leaves flattened in key
-    order into one contiguous bucket, one all_reduce(SUM), unflattened.
-    Every rank gets the same bits. The identity without a process group."""
-    global GRAD_BYTES
+    order into one contiguous bucket, one all_reduce(SUM) of it in place,
+    unflattened. Every rank gets the same bits. The identity without a
+    process group."""
     if not is_distributed():
         return grads
     keys = sorted(grads)
@@ -395,7 +467,6 @@ def all_reduce_grads(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     if len(dtypes) != 1:
         raise TypeError(f"gradients of several dtypes {dtypes}")
     flat = torch.cat([grads[k].reshape(-1) for k in keys])
-    flat = _all_reduce(flat, dist.ReduceOp.SUM)
-    GRAD_BYTES = flat.numel() * flat.element_size()
+    flat = _all_reduce(flat, dist.ReduceOp.SUM, "grads")
     parts = dict(zip(keys, flat.split([grads[k].numel() for k in keys])))
     return {k: parts[k].view_as(g) for k, g in grads.items()}

@@ -64,13 +64,15 @@ def color_corrections(n_cams: int, seed: int = 0) -> np.ndarray:
 
 
 def generate_multiview(root: Path, subject: str = "001", sequence: str = "SEN-01",
-                       n_cams: int = 4, n_frames: int = 4, size: int = 128,
+                       n_cams: int = 4, n_frames: int = 4, size=128,
                        seed: int = 0, head=None, device=None,
                        color_correction: bool = False):
     """Write the rig sequence; returns (ground-truth parameters, camera
-    ids). The head defaults to the asset loader's, built on `device`
-    (default: the CUDA card); frames render on the head's device."""
+    ids). `size`: the frames' side, or their (height, width). The head
+    defaults to the asset loader's, built on `device` (default: the CUDA
+    card); frames render on the head's device."""
     root = Path(root)
+    H, W = (size, size) if isinstance(size, int) else size
     seq_dir = root / subject / sequence
     (seq_dir / "images").mkdir(parents=True, exist_ok=True)
     (seq_dir / "alpha_maps").mkdir(exist_ok=True)
@@ -98,8 +100,8 @@ def generate_multiview(root: Path, subject: str = "001", sequence: str = "SEN-01
     # gl-convention cameras (post-dataset-conversion ground truth)
     R_gl, t_gl = _arc_cameras_gl(n_cams)
     # intrinsics in the *gl* convention at render size
-    f = 1.5 * size
-    K_gl = np.array([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]], np.float32)
+    f = 1.5 * W
+    K_gl = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
 
     # encode to NeRSemble json: opencv orientation = gl with y/z columns
     # flipped; cy_cv = H - cy_gl; w2c = [R^T | -R^T t]
@@ -114,10 +116,10 @@ def generate_multiview(root: Path, subject: str = "001", sequence: str = "SEN-01
         w2c[:3, 3] = Rt @ -t_gl[i]
         world_2_cam[cid] = w2c.tolist()
     K_cv = K_gl.copy()
-    K_cv[1, 2] = size - K_gl[1, 2]
+    K_cv[1, 2] = H - K_gl[1, 2]
     with open(root / "camera_params" / subject / "camera_params.json", "w") as fh:
         json.dump({"intrinsics": K_cv.tolist(), "world_2_cam": world_2_cam,
-                   "height": size, "width": size}, fh)
+                   "height": H, "width": W}, fh)
 
     # device-side camera matrices (w2c from gl convention)
     RT_gl = np.zeros((n_cams, 3, 4), np.float32)
@@ -127,7 +129,7 @@ def generate_multiview(root: Path, subject: str = "001", sequence: str = "SEN-01
 
     settings = RenderSettings(lighting_type="SH")
     tex, verts_uv, lights = head_inputs(head)
-    K4 = torch.as_tensor(np.stack([np.array([f, f, size / 2, size / 2],
+    K4 = torch.as_tensor(np.stack([np.array([f, f, W / 2, H / 2],
                                             np.float32)] * n_cams), device=dev)
     RT = torch.as_tensor(RT_gl, device=dev)
 
@@ -153,7 +155,7 @@ def generate_multiview(root: Path, subject: str = "001", sequence: str = "SEN-01
                 neck=frame("neck_pose", fi), jaw=frame("jaw_pose", fi),
                 eyes=frame("eyes_pose", fi), translation=frame("translation", fi))
             verts_b = verts.expand((n_cams,) + verts.shape[1:])
-            out = render_rgba_vis(verts_b, head.faces, RT, K4, (size, size),
+            out = render_rgba_vis(verts_b, head.faces, RT, K4, (H, W),
                                   settings, verts_uv=verts_uv,
                                   faces_uv=head.textures_idx, tex=tex,
                                   lights=lights)
@@ -166,7 +168,7 @@ def generate_multiview(root: Path, subject: str = "001", sequence: str = "SEN-01
                 save_frame(rgba[ci], seq_dir / "images" / f"cam_{cid}_{ts_id}.jpg",
                            seq_dir / "alpha_maps" / f"cam_{cid}_{ts_id}.jpg")
                 lmks_per_cam[ci].append(landmarks_2d(
-                    lmks, RT[ci:ci + 1], K4[ci:ci + 1], size))
+                    lmks, RT[ci:ci + 1], K4[ci:ci + 1], (H, W)))
 
     for ci, cid in enumerate(cam_ids):
         np.savez(seq_dir / "landmark2d/STAR" / f"{cid}.npz",

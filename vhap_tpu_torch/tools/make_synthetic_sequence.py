@@ -35,11 +35,13 @@ def save_frame(rgba: np.ndarray, image_path: Path, alpha_path: Path) -> None:
     Image.fromarray((alpha * 255).astype(np.uint8)).save(alpha_path, quality=95)
 
 
-def landmarks_2d(lmks, RT, K, size: int) -> np.ndarray:
+def landmarks_2d(lmks, RT, K, size) -> np.ndarray:
     """World landmarks (1, L, 3) -> normalized [0, 1] pixel coordinates +
     confidence (L, 3), the contract of
-    vhap/util/landmark_detector_star.py:370-390."""
-    ndc = cam.world_to_ndc(lmks, RT, K, (size, size), flip_y=True)
+    vhap/util/landmark_detector_star.py:370-390. `size`: the image's side,
+    or its (height, width)."""
+    hw = (size, size) if isinstance(size, int) else tuple(size)
+    ndc = cam.world_to_ndc(lmks, RT, K, hw, flip_y=True)
     xy = ndc[0, :, :2].cpu().numpy() * 0.5 + 0.5
     return np.concatenate([xy, np.ones((xy.shape[0], 1), np.float32)], -1)
 

@@ -49,7 +49,7 @@ SUBJECT, SEQUENCE = "001", "SEN-01"
 TIMESTEP, SEED = 0, 0       # the timestep the step fits; the perturbation's seed
 
 
-def write_rig(root, n_cams: int = 16, n_frames: int = 4, size: int = 512,
+def write_rig(root, n_cams: int = 16, n_frames: int = 4, size=512,
               n_shape: int = 300, n_expr: int = 100, seed: int = 0,
               device=None):
     """Render the rig under root/data with the teeth head whose regions

@@ -282,7 +282,7 @@ def regularization_energy(
                 # the batch's max: its gradient reaches the one element that
                 # holds it, so only the lowest rank holding it adds the term
                 # (with its local max); no host sync
-                m = sharding.all_gather_rows(d.max().detach().reshape(1))
+                m = sharding.all_gather_rows(d.max().detach().reshape(1), "max_rank")
                 over = torch.where(torch.argmax(m) == sharding.rank(), over,
                                    torch.zeros_like(over))
             reg = over + _batch_mean(torch.var(d, dim=-1, correction=1))

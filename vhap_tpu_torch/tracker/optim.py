@@ -91,8 +91,9 @@ def loss_and_grads(energy_fn: Callable, params: P.Params,
                                     allow_unused=True)
         grads = {k: torch.zeros_like(opt_params[k]) if g is None else g
                  for k, g in zip(opt_keys, grads)}
+        grads = sharding.all_reduce_grads(grads)
     log = {k: v.detach() for k, v in log.items()}
-    return E.detach(), log, sharding.all_reduce_grads(grads)
+    return E.detach(), log, grads
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,7 +169,8 @@ def make_train_step(
     `step.learning_rates`: -> (the optimizable leaves' new values, the new
     opt_state, E, log); out {"params", "count", "mu", "nu"} holds tensors
     to write the new values and state into. tracker/step_graph.py captures
-    it as CUDA graphs.
+    it as CUDA graphs. Its collectives are counted as one step's
+    (sharding.step_collectives).
     """
     keys = sorted(opt_leaves)
     lr_base = {k: -lr_map[k] * lr_scale for k in keys}
@@ -197,8 +199,9 @@ def make_train_step(
     def body(params: P.Params, opt_state: Dict, batch: Dict,
              generator: torch.Generator, lr: Dict[str, torch.Tensor],
              out: Optional[Dict] = None):
-        E, log, grads = loss_and_grads(energy_fn, params, opt_leaves, batch,
-                                       generator)
+        with sharding.step_tally():
+            E, log, grads = loss_and_grads(energy_fn, params, opt_leaves, batch,
+                                           generator)
         with span("step.adam"), torch.no_grad():
             updates, opt_state = adam_update(grads, opt_state, out)
             new = {k: torch.add(params[k], lr[k] * updates[k],

@@ -7,16 +7,29 @@ generator, lr_factor=1.0) -> (params, opt_state, E, log)), opt_state
 step from one host thread; a replay launches them as one graph.
 
 Where the graph engages, as the inputs show it: the parameters, the batch
-and the generator on one CUDA device, and no process group. The first call
-of a step runs eager (the warm-up: lazy initialisation, the kernel
-library's build, the allocator's blocks; a stage that runs once never pays
-for a capture). The second captures the whole step on a side stream -- the
-energy (FLAME, the render with its kernels, the energy terms),
-torch.autograd.grad and leaf-lr Adam -- and replays it to do that step's
-work. Every later call whose batch has the keys, shapes and dtypes of the
-captured one, whose parameters have the same leaves and shapes and whose
-generator is the same object replays it. Any other call runs the eager
-step: the CPU, a process group, a batch of another shape.
+and the generator on one CUDA device, and no process group or an NCCL one
+(parallel/sharding.py `capturable`). The first call of a step runs eager
+(the warm-up: lazy initialisation, the kernel library's build, the
+allocator's blocks, under NCCL the first use of each of the step's
+collectives; a stage that runs once never pays for a capture). The second
+captures the whole step on a side stream -- the energy (FLAME, the render
+with its kernels, the energy terms), torch.autograd.grad, the gradients'
+all-reduce under a process group, and leaf-lr Adam -- and replays it to do
+that step's work. Every later call whose batch has the keys, shapes and
+dtypes of the captured one, whose parameters have the same leaves and
+shapes and whose generator is the same object replays it. Any other call
+runs the eager step: the CPU, a gloo group, a batch of another shape.
+
+Under a process group every rank must run the same collectives in the
+same order, so each rank captures or none does: the second call combines
+the ranks' own verdicts in one all-reduce outside the graph (a host read,
+once per capture; a declined step stays eager for good, without asking
+again). The ranks' batches are padded to the same shapes
+(sharding.pad_batch_to_devices), so once captured a call that does not
+fit the graph raises on its rank: running eager there alone would meet
+the other ranks' replayed collectives with other ones and hang until the
+group's timeout. A gloo group reduces on the host (sharding.capturable),
+which a graph does not record, so its steps stay eager.
 
 The graph owns a buffer for every parameter leaf, for Adam's count and
 moments and for every batch tensor; the optimizable leaves and Adam's
@@ -123,23 +136,40 @@ class _GraphedStep:
         self.keys = sorted(opt_leaves)
         self.graphs = graphs
         self.warm = False
+        self.declined = False     # the ranks agreed not to capture
         self.graph = None         # the two graphs, once captured
 
     def __call__(self, params, opt_state, batch, generator, lr_factor=1.0):
         if self.graph is not None:
             if self._fits(params, batch, generator):
                 return self._graphed(params, opt_state, batch, lr_factor, False)
-        elif self.warm and self._may_capture(params, batch, generator):
+            if sharding.is_distributed():
+                raise RuntimeError(
+                    "the train step was captured as CUDA graphs on every rank, and this "
+                    "call's parameters, batch or generator differ from the captured "
+                    "ones; under a process group a rank cannot run it eager alone (its "
+                    "collectives would not match the other ranks' replays)")
+        elif self.warm and not self.declined and self._decide(params, batch, generator):
             self._build(params, opt_state, batch, generator)
             return self._graphed(params, opt_state, batch, lr_factor, True)
         self.warm = True
         self.graphs.eager += 1
         return self.eager_step(params, opt_state, batch, generator, lr_factor)
 
+    def _decide(self, params, batch, generator) -> bool:
+        """Whether to capture now: this process's verdict, and under a
+        process group every rank's (module docstring)."""
+        mine = self._may_capture(params, batch, generator)
+        if not sharding.is_distributed():
+            return mine
+        agreed = sharding.all_agree(mine)
+        self.declined = not agreed
+        return agreed
+
     @staticmethod
     def _may_capture(params, batch, generator) -> bool:
         sig = (_signature(params), _signature(batch))
-        if None in sig or generator is None or sharding.is_distributed():
+        if None in sig or generator is None or not sharding.capturable():
             return False
         devices = {s[3] for part in sig for s in part}
         if len(devices) != 1:
@@ -150,7 +180,7 @@ class _GraphedStep:
                                   else torch.cuda.current_device()))
 
     def _fits(self, params, batch, generator) -> bool:
-        return (generator is self.generator and not sharding.is_distributed()
+        return (generator is self.generator
                 and _signature(batch) == self.batch_sig
                 and _signature(params) == self.param_sig)
 

@@ -11,14 +11,16 @@ On the device:
   * one train step per (stage, lr_scale), built once from make_energy_fn
     and make_train_step and reused across batches and epochs; Adam's state
     is re-initialised from the current parameters at every stage;
-  * on a card, outside a process group, the step's second call captures it
-    as CUDA graphs and later calls replay them (tracker/step_graph.py): the
+  * on a card, alone or in an NCCL group, the step's second call captures
+    it as CUDA graphs and later calls replay them (tracker/step_graph.py,
+    every rank alike; a gloo group's steps stay eager): the
     step then returns the graphs' own parameter and Adam buffers, which the
     call after next overwrites (no call writes the tensors it is given), and
     an energy and log that the next call may overwrite (read at once), and
     one step's graphs live at a time (summary()["step_graph"] counts the
-    calls run eager, captured and replayed); elsewhere the eager step
-    returns a new parameter dict;
+    calls run eager, captured and replayed, and summary()["collectives"]
+    the last eager or captured step's collectives by caller); elsewhere the
+    eager step returns a new parameter dict;
   * a prefetch thread decodes frames into pinned host batches; the main
     thread copies them to the card without blocking;
   * the loop never reads a device scalar per step: train scalars are read
@@ -834,6 +836,7 @@ class GlobalTracker:
                             for st in self.steps_by_stage},
             "eval_calls": self.eval_calls,
             "step_graph": self._step_graphs.counts(),
+            "collectives": sharding.step_collectives(),
             "media_write_s": self.media_write_s,
             "media_blocked_s": self.media_blocked_s,
             "native_batches": getattr(self.dataset, "native_batches", None),
